@@ -1,0 +1,64 @@
+"""Weights carried across: JAX parameter pytrees and reference checkpoints.
+
+The JAX package keeps parameters as a nested dict mirroring the reference's
+module names, with HWIO conv kernels and renamed leaves
+(``sod100k_tpu/interop/torch_ckpt.py``). ``state_dict_from_pytree`` turns
+such a pytree (numpy leaves) into this port's state_dict:
+
+    kernel (HWIO)               -> weight (OIHW)
+    scale/offset/mean/var (BN)  -> weight/bias/running_mean/running_var
+                                   (+ num_batches_tracked = 0)
+    alpha (PReLU)               -> weight
+    anything else (conv bias)   -> kept
+
+It is the JAX package's ``pytree_to_state_dict`` plus the
+``num_batches_tracked`` buffers that ``nn.BatchNorm2d`` carries, so that
+``load_state_dict(strict=True)`` holds.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_BN_LEAVES = {"scale": "weight", "offset": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def state_dict_from_pytree(params: dict) -> dict[str, torch.Tensor]:
+    """JAX CSNet parameter pytree -> this port's state_dict (CPU tensors)."""
+    flat: dict[str, torch.Tensor] = {}
+
+    def walk(node: dict, prefix: str) -> None:
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+                continue
+            arr = np.asarray(v)
+            if k == "kernel":
+                flat[f"{prefix}weight"] = torch.from_numpy(
+                    arr.transpose(3, 2, 0, 1).copy())
+            elif k == "alpha":
+                flat[f"{prefix}weight"] = torch.from_numpy(arr.copy())
+            elif k in _BN_LEAVES:
+                flat[f"{prefix}{_BN_LEAVES[k]}"] = torch.from_numpy(arr.copy())
+                if k == "mean":
+                    flat[f"{prefix}num_batches_tracked"] = torch.tensor(0)
+            else:
+                flat[f"{prefix}{k}"] = torch.from_numpy(arr.copy())
+
+    walk(params, "")
+    return flat
+
+
+def load_checkpoint(path: str) -> tuple[dict[str, torch.Tensor], dict]:
+    """Load a reference .pth.tar; returns (state_dict, metadata dict).
+
+    Accepts the training-driver format ``{'epoch','arch','state_dict',...}``
+    and bare state_dicts. Reference checkpoints hold more than tensors, so
+    this unpickles fully: load only checkpoints you trust."""
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ck, dict) and "state_dict" in ck:
+        return ck["state_dict"], {k: v for k, v in ck.items()
+                                  if k != "state_dict"}
+    return ck, {}

@@ -1,0 +1,196 @@
+"""Generalized Octave Convolution family (csnet flavor), NCHW.
+
+Port of ``sod100k_tpu/ops/goct.py:95-296``. An octave set (octset) is a list
+of NCHW tensors, one per resolution branch (branch i nominally at 1/2^i
+scale), with ``None`` for empty or pruned branches.
+
+Cross-scale resampling follows the reference CSNet gOctConv:
+coarse->fine = conv then bilinear upsample by 2^(i-j); fine->coarse =
+max-pool by 2^(j-i) then conv; stride 2 = avg-pool(2) on the input first.
+
+The modules own their parameters under the reference's names
+(``conv.weight``, ``bns.<j>``, ``prelus.<j>``, ``convs.<j>``, ``msconv.<d>``,
+``bn``, ``prelu``), so a reference state_dict loads strictly. Branch keys
+exist only for branches with channels. Convolutions marked x100 carry the
+reference's Conv2dX100 weight scaling.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from .conv import ConvWeight, conv2d
+from .norm import BN_EPS, norm_act
+from .resample import avg_pool, max_pool, upsample_bilinear
+
+Split = Sequence[int]
+OctSet = list  # list of Optional[torch.Tensor]
+
+DILATIONS = (1, 2, 4, 8, 16)
+
+
+def _offsets(split: Split) -> list[int]:
+    offs = [0]
+    for s in split:
+        offs.append(offs[-1] + int(s))
+    return offs
+
+
+def _bn(c: int, device) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=BN_EPS, device=device)
+
+
+def _prelu(c: int, device) -> nn.PReLU:
+    return nn.PReLU(c, init=0.25, device=device)
+
+
+def goct_conv(
+    xset: OctSet,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    *,
+    in_split: Split,
+    out_split: Split,
+    stride: int = 1,
+    padding: int = 0,
+    dilation: int = 1,
+) -> OctSet:
+    """Generalized octave convolution over an octset.
+
+    ``weight`` is the dense OIHW tensor (sum(out_split), sum(in_split), kh,
+    kw); each (in-branch, out-branch) pair convolves with its slice, and the
+    contributions to an output branch are summed in input-branch order.
+    """
+    in_off = _offsets(in_split)
+    out_off = _offsets(out_split)
+    ysets: list[list[torch.Tensor]] = [[] for _ in out_split]
+    for i, ci in enumerate(in_split):
+        if ci == 0 or i >= len(xset) or xset[i] is None:
+            continue
+        x = avg_pool(xset[i], 2) if stride == 2 else xset[i]
+        for j, cj in enumerate(out_split):
+            if cj == 0:
+                continue
+            w = weight[out_off[j]:out_off[j + 1], in_off[i]:in_off[i + 1]]
+            b = None if bias is None else bias[out_off[j]:out_off[j + 1]]
+            if i > j:
+                y = upsample_bilinear(
+                    conv2d(x, w, b, padding=padding, dilation=dilation),
+                    2 ** (i - j))
+            elif i < j:
+                y = conv2d(max_pool(x, 2 ** (j - i)), w, b, padding=padding,
+                           dilation=dilation)
+            else:
+                y = conv2d(x, w, b, padding=padding, dilation=dilation)
+            ysets[j].append(y)
+    out: OctSet = []
+    for ys in ysets:
+        if not ys:
+            out.append(None)
+            continue
+        acc = ys[0]
+        for y in ys[1:]:
+            acc = acc + y
+        out.append(acc)
+    return out
+
+
+class GOctCBR(nn.Module):
+    """gOctConv (or a plain x100 conv when 1-in/1-out) + per-branch BN +
+    PReLU: ``goct_cbr``. The x100 weight scale applies only on the
+    single-branch path (reference gOctaveCBR)."""
+
+    def __init__(self, in_split: Split, out_split: Split, kernel: int, *,
+                 stride: int = 1, padding: int = 0, device=None):
+        super().__init__()
+        self.in_split = tuple(int(c) for c in in_split)
+        self.out_split = tuple(int(c) for c in out_split)
+        self.stride, self.padding = stride, padding
+        self.conv = ConvWeight(sum(self.out_split), sum(self.in_split), kernel,
+                               device=device)
+        live = [(str(j), c) for j, c in enumerate(self.out_split) if c]
+        self.bns = nn.ModuleDict({k: _bn(c, device) for k, c in live})
+        self.prelus = nn.ModuleDict({k: _prelu(c, device) for k, c in live})
+
+    def forward(self, xset: OctSet) -> OctSet:
+        if len(self.in_split) == 1 and len(self.out_split) == 1:
+            yset = [conv2d(xset[0], self.conv.weight, stride=self.stride,
+                           padding=self.padding, weight_scale=100.0)]
+        else:
+            yset = goct_conv(xset, self.conv.weight, None,
+                             in_split=self.in_split, out_split=self.out_split,
+                             stride=self.stride, padding=self.padding)
+        out: OctSet = []
+        for j, y in enumerate(yset):
+            if y is None or self.out_split[j] == 0:
+                out.append(None)
+                continue
+            out.append(norm_act(self.bns[str(j)], self.prelus[str(j)], y))
+        return out
+
+
+class SimplifiedGOctCBR(nn.Module):
+    """Per-branch depthwise 3x3 Conv2dX100 + BN + PReLU, no cross-branch
+    mixing: ``simplified_goct_cbr`` (reference SimplifiedGOctConvBR)."""
+
+    def __init__(self, split: Split, *, device=None):
+        super().__init__()
+        self.split = tuple(int(c) for c in split)
+        live = [(str(j), c) for j, c in enumerate(self.split) if c]
+        self.convs = nn.ModuleDict(
+            {k: ConvWeight(c, 1, 3, device=device) for k, c in live})
+        self.bns = nn.ModuleDict({k: _bn(c, device) for k, c in live})
+        self.prelus = nn.ModuleDict({k: _prelu(c, device) for k, c in live})
+
+    def forward(self, xset: OctSet) -> OctSet:
+        out: OctSet = []
+        for j, c in enumerate(self.split):
+            if c == 0 or xset[j] is None:
+                out.append(None)
+                continue
+            k = str(j)
+            y = conv2d(xset[j], self.convs[k].weight, padding=1, groups=c,
+                       weight_scale=100.0)
+            out.append(norm_act(self.bns[k], self.prelus[k], y))
+        return out
+
+
+class MSBlock(nn.Module):
+    """Parallel dilated 3x3 x100 convs (dilations 1/2/4/8/16), concatenated,
+    then BN + PReLU: ``ms_block``. Zero-width dilations are skipped."""
+
+    def __init__(self, cin: int, dil_split: Split, *, device=None):
+        super().__init__()
+        self.dil_split = tuple(int(c) for c in dil_split)
+        self.msconv = nn.ModuleDict({
+            str(i): ConvWeight(c, cin, 3, device=device)
+            for i, c in enumerate(self.dil_split) if c})
+        self.bn = _bn(sum(self.dil_split), device)
+        self.prelu = _prelu(sum(self.dil_split), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [conv2d(x, self.msconv[str(i)].weight, padding=d, dilation=d,
+                       weight_scale=100.0)
+                for i, d in enumerate(DILATIONS) if self.dil_split[i]]
+        y = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        return norm_act(self.bn, self.prelu, y)
+
+
+class PallMSBlock(nn.Module):
+    """One MSBlock per octave branch: ``pall_ms_block``."""
+
+    def __init__(self, in_split: Split, dil_splits: Sequence[Split], *,
+                 device=None):
+        super().__init__()
+        self.live = tuple(max(int(v) for v in ds) != 0 for ds in dil_splits)
+        self.convs = nn.ModuleDict({
+            str(i): MSBlock(int(in_split[i]), ds, device=device)
+            for i, ds in enumerate(dil_splits) if self.live[i]})
+
+    def forward(self, xset: OctSet) -> OctSet:
+        return [self.convs[str(i)](xset[i])
+                if live and xset[i] is not None else None
+                for i, live in enumerate(self.live)]

@@ -1,0 +1,144 @@
+"""Serving artifacts and the bucketed ServingModel.
+
+Port of ``sod100k_tpu/serve.py:58-221``. The JAX package exports StableHLO;
+here an artifact is a directory holding
+
+    meta.json         input/output contract, buckets, compute dtype, torch version
+    layer_config.bin  the architecture, in the reference's pickle format
+    model.pt          the f32 state_dict (``torch.save``)
+
+and loading rebuilds the CSNet module on an explicit device. The wire
+contracts are the JAX package's: ``wire="f32"`` takes ImageNet-normalized
+float32 NHWC and returns the float32 (N,H,W,1) sigmoid; ``wire="u8"`` takes
+raw uint8 RGB (normalized on device) and returns trunc(sigmoid*255) as
+uint8. Parameters stay f32; activations run in the compute dtype.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from .arch.csnet import CSNet
+from .arch.layer_config import LayerConfig
+from .train.step import make_eval_step
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def export_artifact(out_dir: str, model: CSNet, *, batch=1,
+                    hw: tuple[int, int] = (224, 224),
+                    dtype: torch.dtype = torch.bfloat16,
+                    wire: str = "f32") -> str:
+    """Write a serving artifact for ``model`` (a CSNet). ``batch`` is an int
+    or a sequence of ints: the shape buckets the ServingModel routes request
+    batches onto (pad to the smallest covering bucket; chunk over the
+    largest)."""
+    if wire not in ("f32", "u8"):
+        raise ValueError(f"unknown wire {wire!r}")
+    dtype_name = str(dtype).removeprefix("torch.")
+    if dtype_name not in _DTYPES:
+        raise ValueError(f"compute dtype must be one of {sorted(_DTYPES)}")
+    batches = sorted({int(b) for b in
+                      (batch if isinstance(batch, (list, tuple)) else [batch])})
+    os.makedirs(out_dir, exist_ok=True)
+    model.lc.save(os.path.join(out_dir, "layer_config.bin"))
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               os.path.join(out_dir, "model.pt"))
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump({"family": "csnet", "batch": batches[-1],
+                   "batches": batches, "h": hw[0], "w": hw[1],
+                   "compute_dtype": dtype_name, "wire": wire,
+                   "torch_version": torch.__version__,
+                   "input": ("uint8 NHWC RGB (normalize fused)"
+                             if wire == "u8" else
+                             "float32 NHWC, ImageNet-normalized"),
+                   "output": ("uint8 (N,H,W,1) trunc(sigmoid*255)"
+                              if wire == "u8" else
+                              "float32 (N,H,W,1) sigmoid saliency")}, f,
+                  indent=1)
+    return out_dir
+
+
+def _major_minor(version: str) -> tuple[int, int]:
+    major, minor = version.split("+")[0].split(".")[:2]
+    return int(major), int(minor)
+
+
+class ServingModel:
+    """Loaded artifact: ``model(images) -> saliency`` (numpy in, numpy out).
+
+    Any request batch N is served over the artifact's buckets: the smallest
+    covering bucket handles the tail (padded by repeating the last image,
+    padding discarded), the largest handles overflow in chunks. Spatial dims
+    must match the artifact exactly."""
+
+    def __init__(self, path: str, device: str | torch.device):
+        with open(os.path.join(path, "meta.json")) as f:
+            self.meta = json.load(f)
+        if self.meta.get("family") != "csnet":
+            raise ValueError(f"unsupported artifact family "
+                             f"{self.meta.get('family')!r}")
+        # version guard: torch.save files load on the same or a newer torch;
+        # refuse an artifact written by a newer one with a clear message
+        # instead of a deserializer traceback
+        exporter = self.meta.get("torch_version", "unknown")
+        if exporter == "unknown" or \
+                _major_minor(exporter) > _major_minor(torch.__version__):
+            raise RuntimeError(
+                f"serving artifact at {path} was written by torch {exporter}; "
+                f"this runtime is torch {torch.__version__}; re-export the "
+                f"artifact with this runtime's torch")
+        self.batches = sorted(self.meta["batches"])
+        self.device = torch.device(device)
+        lc = LayerConfig.load(os.path.join(path, "layer_config.bin"))
+        self.model = CSNet(lc, device=self.device)
+        state = torch.load(os.path.join(path, "model.pt"),
+                           map_location=self.device, weights_only=True)
+        self.model.load_state_dict(state, strict=True)
+        u8 = self.meta["wire"] == "u8"
+        self._step = make_eval_step(
+            self.model, from_u8=u8, quantize_u8=u8,
+            compute_dtype=_DTYPES[self.meta["compute_dtype"]])
+
+    @property
+    def input_shape(self) -> tuple[int, int, int, int]:
+        m = self.meta
+        return (m["batch"], m["h"], m["w"], 3)
+
+    def __call__(self, images) -> np.ndarray:
+        if self.meta["wire"] == "u8":
+            # refuse silent float->uint8 coercion: normalized floats from a
+            # client on the f32 contract would wrap into garbage pixels
+            arr = np.asarray(images)
+            if not np.issubdtype(arr.dtype, np.integer):
+                raise TypeError(
+                    f"wire='u8' artifact expects raw uint8 RGB images, got "
+                    f"dtype {arr.dtype}; pass undecoded pixel values (the "
+                    f"normalize runs on device)")
+            x = arr.astype(np.uint8)
+        else:
+            x = np.asarray(images, np.float32)
+        if x.ndim != 4 or x.shape[1:] != self.input_shape[1:]:
+            raise ValueError(f"expected (N, {self.meta['h']}, "
+                             f"{self.meta['w']}, 3) images, got {x.shape}")
+        outs, i, n = [], 0, x.shape[0]
+        while i < n:
+            rem = n - i
+            b = next((b for b in self.batches if b >= rem), self.batches[-1])
+            take = min(rem, b)
+            chunk = x[i:i + take]
+            if take < b:
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], b - take, axis=0)])
+            out = self._step(torch.from_numpy(np.ascontiguousarray(chunk)))
+            outs.append(out.cpu().numpy()[:take])
+            i += take
+        return np.concatenate(outs) if len(outs) > 1 else outs[0]
+
+
+def load_artifact(path: str, device: str | torch.device) -> ServingModel:
+    return ServingModel(path, device=device)
