@@ -10,8 +10,10 @@ kernel (csrc/dw_chain.cu). Phases; any failure exits non-zero:
 1. build the kernel with nvcc (sm_90a) and print the card's name and
    power limit;
 2. kernel against its plain PyTorch version on the card, at the main path's
-   shapes and at ragged ones: f32 within atol 2e-5, bf16 within one bf16 ulp
-   (rtol 2^-7, atol 1e-3);
+   shapes, at ragged ones and at one shape on each launch plan's edge: f32
+   within atol 2e-5, bf16 within one bf16 ulp (rtol 2^-7, atol 1e-3), each
+   of a value the plain function may give (in bf16 an intermediate at a
+   rounding tie may round either way: ``dw_chain.check_against_plain``);
 3. the model in f32 on the card (kernel path) against the port on the CPU
    (plain path): max |dlogit| < 1e-3, sigmoid mean |d| < 1e-5, 33 kernel
    launches per forward, a sigmoid that is not constant;
@@ -23,19 +25,36 @@ kernel (csrc/dw_chain.cu). Phases; any failure exits non-zero:
    fresh x100 net amplifies to most pixels, so the served-vs-direct bar
    (within 1 level on at most 0.1% of pixels) is held by
 4b. the same with an f32-compute artifact, which is batch-invariant;
-5. times with CUDA events (not gated): kernel and plain per shape at N=32
-   bf16, and direct ServingModel img/s at B=32.
+5. at N=32 for each main-path shape, the kernel held against the plain
+   version in bf16 and f32 as in phase 2, then times (not gated): the kernel's
+   device time per call (torch.profiler self device time of the kernel
+   over 20 launches of ``fused_dw_chain_packed``, with CUDA events around
+   the same loop as a cross-check), the wrapper's host time per call, the
+   bound and the share of it, the plain version, and one bf16 depthwise
+   ``F.conv2d`` (one stage, no BN or PReLU) as a yardstick; then the B=32
+   bf16 eval forward (host clock, synchronized) with the profiler's device
+   time split by kernel, and direct ServingModel img/s at B=32.
 
 Needs torch with CUDA and nvcc; no jax, cv2 or yaml. The second line from
 the end is a JSON summary of the kernels; the last line is the run's JSON
 result.
+
+    python3 chip_smoke.py --variants
+
+runs phase 1 and then an A/B of the kernel's plan sizes and of diagnostic
+builds of its source (arithmetic, staging copies or stores of y taken out),
+timed as in phase 5 and printed per shape and per forward; no result line.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import ctypes
 import io
 import json
+import os
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -61,6 +80,14 @@ MAIN_SHAPES = [((224, 224, 20), 4), ((112, 112, 20), 4), ((112, 112, 40), 3),
                ((28, 28, 80), 8), ((14, 14, 80), 3), ((56, 56, 160), 1),
                ((28, 28, 160), 1)]
 RAGGED_SHAPES = [(2, 40, 36, 13), (1, 17, 23, 5), (2, 64, 64, 24)]  # NHWC
+EDGE_SHAPES = [(3, 9, 14, 14),    # odd plane count at 14^2 (NCHW)
+               (2, 3, 101, 224),  # H not a multiple of the band rows
+               (1, 1, 224, 224),  # the band path with a single plane
+               (2, 3, 170, 102)]   # rows not 16-byte aligned
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS_S = 67e12    # H100 SXM float32 outside the tensor cores
+FLOPS_PER_ELEMENT = 2 * (9 + 9 + 2 + 1)  # two stages: taps, scale+shift, PReLU
+L2_BYTES = 50e6
 TOL = {torch.float32: dict(rtol=0.0, atol=2e-5),
        torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-3)}
 
@@ -103,24 +130,34 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def check_kernel(got, x, params, what: str) -> float:
+    """Hold the kernel's result against the plain version at TOL: within the
+    bar of a value the plain function may give, where a bf16 intermediate
+    at a rounding tie may round either way (the kernel and cuDNN sum the
+    taps in different orders). Returns the largest distance."""
+    check(got.dtype == x.dtype and got.shape == x.shape,
+          f"kernel output {got.dtype} {tuple(got.shape)}")
+    plain = dw_chain.fused_dw_chain_ref(x, *params)
+    e, ties = dw_chain.check_against_plain(got, x, params, **TOL[x.dtype])
+    say(f"  kernel vs plain {str(x.dtype)[6:]:8s} NCHW {what}: max |d| "
+        f"{(got.float() - plain.float()).abs().max().item():.3e} from the "
+        f"plain version, {e:.3e} from its range ({ties} intermediates near a "
+        f"rounding tie)")
+    return e
+
+
 def phase_kernel_vs_plain() -> dict:
-    rng = np.random.default_rng(0)
     cases = [(2, c, h, w) for (h, w, c), _ in MAIN_SHAPES]
-    cases += [(n, c, h, w) for n, h, w, c in RAGGED_SHAPES]
+    cases += [(n, c, h, w) for n, h, w, c in RAGGED_SHAPES] + EDGE_SHAPES
+    rng = np.random.default_rng(0)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in cases:
             x, params = chain_inputs(*shape, dtype, rng)
             got = dw_chain.fused_dw_chain(x, *params)
             torch.cuda.synchronize()
-            want = dw_chain.fused_dw_chain_ref(x, *params)
-            check(got.dtype == dtype and got.shape == x.shape,
-                  f"kernel output {got.dtype} {tuple(got.shape)}")
-            torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-            e = (got.float() - want.float()).abs().max().item()
-            err[dtype] = max(err[dtype], e)
-            say(f"  kernel vs plain {str(dtype)[6:]:8s} NCHW {shape}: "
-                f"max |d| {e:.3e}")
+            err[dtype] = max(err[dtype], check_kernel(got, x, params,
+                                                      str(shape)))
     return err
 
 
@@ -247,25 +284,120 @@ def phase_serving(model_cpu: CSNet, artifact: str, dtype: torch.dtype):
     return sm, served_launches
 
 
-def phase_times(sm, gpu: str) -> tuple[float, float]:
+def device_ms(fn, match: str | None = None, iters: int = 20) -> float:
+    """Device time per call of ``fn``: torch.profiler's self device time of
+    the kernels whose name holds ``match`` (every kernel if None), over
+    ``iters`` calls, after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler has been seen to drop a whole window
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for e in prof.key_averages():
+            if match is None or match in e.key:
+                total += e.self_device_time_total
+                count += e.count
+        if total > 0 and (match is None or count == iters):
+            return total / iters / 1e3
+    raise RuntimeError(f"check failed: the profiler saw {count} {match} "
+                       f"kernels in {iters} calls")
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Host time per call of ``fn`` (the enqueue, not the device work)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def phase_times(sm, gpu: str) -> dict:
     rng = np.random.default_rng(3)
-    kernel_total = plain_total = 0.0
+    tot = dict.fromkeys(("device", "events", "host", "bound", "plain",
+                         "library", "bytes_bound", "ops_bound"), 0.0)
     for (h, w, c), calls in MAIN_SHAPES:
         x, params = chain_inputs(32, c, h, w, torch.bfloat16, rng)
-        fused = lambda: dw_chain.fused_dw_chain(x, *params)  # noqa: E731
+        packed = dw_chain.pack_params(*params)
+        plan = dw_chain.device_plan(32, c, h, w, torch.bfloat16, 0)
+        fused = lambda: dw_chain.fused_dw_chain_packed(x, packed)  # noqa: E731
+        # the plans the forward runs, walks of several items a block
+        # included, against the plain version
+        check_kernel(fused(), x, params, f"(32, {c}, {h}, {w})")
+        x32 = x.float()
+        check_kernel(dw_chain.fused_dw_chain_packed(x32, packed), x32,
+                     params, f"(32, {c}, {h}, {w})")
+        del x32
         plain = lambda: dw_chain.fused_dw_chain_ref(x, *params)  # noqa: E731
+        wdw = params[0].reshape(c, 1, 3, 3).to(torch.bfloat16)
+        lib = lambda: torch.nn.functional.conv2d(  # noqa: E731
+            x, wdw, padding=1, groups=c)
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(fused), cuda_ms(fused), \
             cuda_ms(plain)
-        k, p = (k1 + k2) / 2, (p1 + p2) / 2
-        kernel_total += calls * k
-        plain_total += calls * p
-        gbs = 2 * x.numel() * x.element_size() / (k * 1e6)
-        say(f"  N=32 bf16 ({h},{w},{c}) x{calls}: kernel {k:.4f} ms "
-            f"({gbs:.0f} GB/s at 2 passes), plain {p:.4f} ms  [{gpu}]")
-    say(f"  per B=32 forward (33 calls): kernel {kernel_total:.3f} ms, "
-        f"plain {plain_total:.3f} ms  [{gpu}]")
+        dev = device_ms(fused, match="dw_chain_kernel")
+        lib_ms = device_ms(lib)
+        host = host_us(fused)
+        nbytes = 2 * x.numel() * x.element_size()  # read x, write y
+        bytes_bound = nbytes / HBM_BYTES_S * 1e3
+        ops_bound = x.numel() * FLOPS_PER_ELEMENT / F32_FLOPS_S * 1e3
+        bound = max(bytes_bound, ops_bound)
+        row = dict(device=dev, events=(k1 + k2) / 2, host=host, bound=bound,
+                   plain=(p1 + p2) / 2, library=lib_ms,
+                   bytes_bound=bytes_bound, ops_bound=ops_bound)
+        for k in tot:
+            tot[k] += calls * row[k]
+        l2 = "fits in" if nbytes <= L2_BYTES else "exceeds"
+        say(f"  N=32 bf16 ({h},{w},{c}) x{calls} [{plan.variant}, "
+            f"{plan.copy}, planes {plan.planes}, rows {plan.rows}, vec "
+            f"{plan.vec}, block {plan.block}, grid {plan.grid}, smem "
+            f"{plan.smem}]: device {dev * 1e3:.2f} us (events "
+            f"{row['events'] * 1e3:.2f} us), host {host:.1f} us, bound "
+            f"{bound * 1e3:.2f} us ({bound / dev:.1%} of it), plain "
+            f"{row['plain']:.4f} ms, library_ms (one-stage bf16 depthwise "
+            f"conv2d, not the same function) {lib_ms:.4f} ms; x + y "
+            f"{nbytes / 1e6:.1f} MB {l2} the 50 MB L2 between calls  [{gpu}]")
+    say(f"  per B=32 forward (33 calls): kernel device {tot['device']:.4f} ms "
+        f"(events {tot['events']:.4f} ms), bound {tot['bound']:.4f} ms "
+        f"({tot['bound'] / tot['device']:.1%} of it), host "
+        f"{tot['host']:.0f} us, plain {tot['plain']:.4f} ms, one-stage "
+        f"conv2d yardstick {tot['library']:.4f} ms  [{gpu}]")
 
     images = rng.integers(0, 256, (32, *HW, 3), np.uint8)
+    step = make_eval_step(sm.model, from_u8=True,
+                          compute_dtype=torch.bfloat16)
+    xu8 = torch.from_numpy(images).cuda()
+    for _ in range(3):
+        step(xu8)
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(xu8)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / reps * 1e3
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step(xu8)
+        torch.cuda.synchronize()
+    kernels = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    dev_fwd = sum(e.self_device_time_total for e in kernels) / 5 / 1e3
+    say(f"  eval forward B=32 bf16 224^2, u8 on the card: {fwd_ms:.3f} ms per "
+        f"forward (host clock, 20 forwards, synchronized), device "
+        f"{dev_fwd:.3f} ms ({1 - dev_fwd / fwd_ms:.1%} idle)  [{gpu}]")
+    for e in kernels[:14]:
+        t = e.self_device_time_total / 5 / 1e3
+        say(f"    {t:8.4f} ms {t / dev_fwd:6.1%} {e.count / 5:6.1f}/fwd  "
+            f"{e.key[:110]}")
+
     for _ in range(3):
         sm(images)
     reps = 10
@@ -275,12 +407,108 @@ def phase_times(sm, gpu: str) -> tuple[float, float]:
     dt = time.perf_counter() - t0
     say(f"  direct ServingModel B=32 bf16 u8 wire: {reps * 32 / dt:.1f} img/s "
         f"({dt / reps * 1e3:.2f} ms per call)  [{gpu}]")
-    return kernel_total, plain_total
+    return tot
+
+
+# --variants: A/B of the kernel's plan sizes (module constants of
+# ops/dw_chain.py, for every shape or by H) and diagnostic builds of the
+# source that compute the wrong thing on purpose, to show which part bounds
+# the kernel
+VARIANTS = {
+    "default": {},
+    "diag: no arithmetic": {"patch": [(
+        "    float v = acc * s + sh;", "    float v = b[i + 1]; (void)acc;")]},
+    "diag: no staging copies": {"patch": [
+        ("  it.bulk = s.bulk && ", "  it.bulk = false && "),
+        ("      for (int i = tid; i < it.count; i += nthreads) in[i] = src[i];",
+         "      (void)src;")]},
+    "diag: no stores of y": {"patch": [(
+        "  *reinterpret_cast<Vec<T, V>*>(out) = o;",
+        "  if (__isShared(out) || to_f32(o.v[0]) == 12345.f)\n"
+        "    *reinterpret_cast<Vec<T, V>*>(out) = o;")]},
+    "128 threads": {"all": {"BAND_THREADS": 128, "PLANE_THREADS": 128}},
+    "224 threads": {"all": {"BAND_THREADS": 224, "PLANE_THREADS": 224}},
+    "two slots everywhere": {"all": {"PLANE_SLOTS": 2}},
+    "one slot everywhere": {"all": {"BAND_SLOTS": 1}},
+    "224^2 bands of 48 rows": {224: {"BAND_BYTES": 52 * 224 * 2}},
+    "112^2 as bands of 56 rows": {112: {"PLANE_BYTES": 0,
+                                        "BAND_BYTES": 60 * 112 * 2}},
+    "56^2 one plane per item": {56: {"ITEM_BYTES": 56 * 56 * 2}},
+    "56^2 two planes per item": {56: {"ITEM_BYTES": 2 * 56 * 56 * 2}},
+    "28^2 two, 14^2 eighteen planes per item": {
+        28: {"ITEM_BYTES": 2 * 28 * 28 * 2},
+        14: {"ITEM_BYTES": 20 * 14 * 14 * 2, "ITEMS_PER_SM": 1}},
+}
+
+
+def build_patched(name: str, patch) -> ctypes.CDLL:
+    """``csrc/dw_chain.cu`` with ``patch`` (a list of (old, new)) applied,
+    built into ``_build/variants/``."""
+    with open(os.path.join(cuda_lib.CSRC_DIR, "dw_chain.cu")) as f:
+        src = f.read()
+    for old, new in patch:
+        check(old in src, f"variant {name!r}: patch target in the source")
+        src = src.replace(old, new)
+    stem = os.path.join(cuda_lib.BUILD_DIR, "variants",
+                        "".join(ch if ch.isalnum() else "_" for ch in name))
+    os.makedirs(os.path.dirname(stem), exist_ok=True)
+    with open(stem + ".cu", "w") as f:
+        f.write(src)
+    subprocess.run([cuda_lib.find_nvcc(), *cuda_lib.NVCC_FLAGS, "-o",
+                    stem + ".so", stem + ".cu"], capture_output=True,
+                   check=True)
+    return dw_chain.bind(ctypes.CDLL(stem + ".so"))
+
+
+def phase_variants(gpu: str) -> None:
+    """Device ms per call of each variant at each main-path shape (N=32,
+    bf16), best of two runs taken in the order A..Z, Z..A, and the sum
+    over the 33 calls of a forward."""
+    names = list(VARIANTS)
+    patched = [n for n in names if "patch" in VARIANTS[n]]
+    with concurrent.futures.ThreadPoolExecutor(len(patched)) as ex:
+        libs = dict(zip(patched, ex.map(
+            lambda n: build_patched(n, VARIANTS[n]["patch"]), patched)))
+    default_lib = dw_chain._lib
+    sizes0 = {k: getattr(dw_chain, k) for k in dir(dw_chain) if k.isupper()}
+    rng = np.random.default_rng(4)
+    totals = dict.fromkeys(names, 0.0)
+    for (h, w, c), calls in MAIN_SHAPES:
+        x, params = chain_inputs(32, c, h, w, torch.bfloat16, rng)
+        packed = dw_chain.pack_params(*params)
+        best = {}
+        for name in names + names[::-1]:
+            v = VARIANTS[name]
+            sizes = {**v.get("all", {}), **v.get(h, {})}
+            lib = libs.get(name)
+            try:
+                for k, val in sizes.items():
+                    setattr(dw_chain, k, val)
+                if lib is not None:
+                    dw_chain._lib = lambda lib=lib: lib
+                dw_chain.device_plan.cache_clear()
+                t = device_ms(lambda: dw_chain.fused_dw_chain_packed(
+                    x, packed), match="dw_chain_kernel")
+            finally:
+                for k, val in sizes0.items():
+                    setattr(dw_chain, k, val)
+                dw_chain._lib = default_lib
+                dw_chain.device_plan.cache_clear()
+            best[name] = min(best.get(name, t), t)
+        bound = 2 * x.numel() * x.element_size() / HBM_BYTES_S * 1e6
+        say(f"  ({h},{w},{c}) x{calls}, bound {bound:.2f} us, device us: "
+            + "; ".join(f"{n} {t * 1e3:.2f}" for n, t in best.items()))
+        for n, t in best.items():
+            totals[n] += calls * t
+    say(f"  per forward (33 calls), device ms  [{gpu}]:")
+    for n, t in totals.items():
+        say(f"    {t:.4f}  {n}")
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
+    check(sys.argv[1:] in ([], ["--variants"]), "arguments: none or --variants")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     say("TF32 off for convolutions and matmuls: f32 phases run in full f32")
@@ -297,6 +525,11 @@ def main() -> None:
         check=True).stdout.strip()
     say(smi)
     gpu = smi.splitlines()[0]
+
+    if sys.argv[1:] == ["--variants"]:
+        say("variants of the kernel's plans and diagnostic builds")
+        phase_variants(gpu)
+        return
 
     say("phase 2: kernel vs plain on the card")
     err = phase_kernel_vs_plain()
@@ -322,7 +555,7 @@ def main() -> None:
         f"(not gated)")
 
     say("phase 5: times (not gated)")
-    kernel_ms, plain_ms = phase_times(sm, gpu)
+    tot = phase_times(sm, gpu)
 
     print(json.dumps({"kernels": [{
         "name": "fused_dw_chain", "route": "cuda",
@@ -330,7 +563,11 @@ def main() -> None:
         "replaces": "sod100k_tpu/ops/pallas/dw_chain.py:125",
         "launches": served_launches,
         "max_abs_err": err[torch.float32],
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "ms": tot["device"], "plain_ms": tot["plain"],
+        "bound_ms": tot["bound"], "bound_by": ("bytes" if tot["bytes_bound"] >= tot["ops_bound"]
+                     else "operations"),
+        "library_ms": tot["library"], "device_ms": tot["device"],
+        "host_us": tot["host"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

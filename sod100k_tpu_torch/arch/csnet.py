@@ -13,8 +13,9 @@ parameters (through ``interop.torch_ckpt``) load with ``strict=True``.
 
 In eval mode each ILBlock's depthwise tail runs fused
 (``ops.dw_chain.dw_tail_fused``): the CUDA kernel on the card, its plain
-version on the CPU. Train mode runs the unfused modules, which own the
-parameters.
+version on the CPU, from parameter packs that the block builds once per
+weight set (``ops.dw_chain.TailPacks``). Train mode runs the unfused
+modules, which own the parameters.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.conv import ConvWeight, conv2d, init_conv_
-from ..ops.dw_chain import dw_tail_fused
+from ..ops.dw_chain import TailPacks, dw_tail_fused
 from ..ops.goct import GOctCBR, PallMSBlock, SimplifiedGOctCBR
 from ..ops.resample import resize_bilinear
 from .layer_config import BlockPlan, Entry, LayerConfig
@@ -42,11 +43,24 @@ class ILBlock(nn.Module):
                                device=device)
         self.conv3x3_1 = SimplifiedGOctCBR(entry.out_split, device=device)
         self.conv3x3_2 = SimplifiedGOctCBR(entry.out_split, device=device)
+        self.tail_packs = TailPacks()
+
+    # A move or conversion gives the buffers fresh tensors whose version
+    # counters restart, possibly at freed addresses, so the packs' key
+    # could repeat for new data: drop the packs instead.
+    def _apply(self, *args, **kwargs):
+        self.tail_packs = TailPacks()
+        return super()._apply(*args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self.tail_packs = TailPacks()
+        super()._load_from_state_dict(*args, **kwargs)
 
     def forward(self, xset: list) -> list:
         y = self.conv1x1(xset)
         if not self.training:
-            return dw_tail_fused(self.conv3x3_1, self.conv3x3_2, y, self.split)
+            return dw_tail_fused(
+                y, self.tail_packs.get(self.conv3x3_1, self.conv3x3_2))
         return self.conv3x3_2(self.conv3x3_1(y))
 
 

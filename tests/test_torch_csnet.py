@@ -172,3 +172,108 @@ def test_reference_pickle_round_trip_through_port(tmp_path):
     path = tmp_path / "lc.bin"
     path.write_bytes(pickle.dumps(raw))
     assert LayerConfig.load(str(path)) == init_layers(8, (0.5, 0.5))
+
+
+def _calibrated(seed: int, hw=(32, 32)) -> tuple[CSNet, torch.Tensor]:
+    model = CSNet(init_layers(8, (0.5, 0.5)), seed=seed)
+    rng = np.random.default_rng(seed)
+    batch = torch.from_numpy(rng.standard_normal((4, *hw, 3),
+                                                 dtype=np.float32))
+    calibrate_bn(model, batch)
+    return model, batch[:2]
+
+
+def _tails(model: CSNet) -> int:
+    """Live octave branches over the ILBlock tails: packs per weight set."""
+    return sum(1 for m in model.modules() if hasattr(m, "tail_packs"))
+
+
+def test_eval_forwards_pack_once():
+    """The eval path builds each block's parameter pack once per weight set,
+    not per forward."""
+    model, x = _calibrated(3)
+    before = dw_chain.packs_built
+    with torch.no_grad():
+        first = model(x)
+        built = dw_chain.packs_built - before
+        second = model(x)
+    assert built == _tails(model) == 18
+    assert dw_chain.packs_built - before == built  # none for the second
+    torch.testing.assert_close(first, second, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("change", ["load_state_dict", "to", "in_place"])
+def test_new_weights_repack(change):
+    """load_state_dict with other weights, .to() and an in-place update each
+    rebuild the packs; the output equals a freshly built model's."""
+    model, x = _calibrated(3)
+    other, _ = _calibrated(4)
+    with torch.no_grad():
+        model(x)
+        before = dw_chain.packs_built
+        if change == "load_state_dict":
+            model.load_state_dict(other.state_dict())
+            fresh = other
+        elif change == "to":
+            model.to(torch.float64).to(torch.float32)
+            fresh = model
+        else:
+            bn = model.stage1[0].conv3x3_2.bns["0"]
+            bn.running_var.mul_(2.0)
+            fresh = CSNet(model.lc)
+            fresh.load_state_dict(model.state_dict())
+            fresh.eval()
+        got = model(x)
+        rebuilt = dw_chain.packs_built - before
+        want = fresh(x) if fresh is not model else None
+    # every block's sources moved or changed, or just the updated block's
+    assert rebuilt == (1 if change == "in_place" else 18)
+    if want is not None:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        assert np.isfinite(got.numpy()).all()
+
+
+def test_pack_from_inference_mode_serves_no_grad_forward():
+    """A pack first built under torch.inference_mode() serves a later
+    torch.no_grad() forward, and a grad-mode one, unchanged."""
+    model, x = _calibrated(5)
+    with torch.inference_mode():
+        want = model(x).clone()
+    before = dw_chain.packs_built
+    with torch.no_grad():
+        got = model(x)
+    assert dw_chain.packs_built == before
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got_grad = model(x.clone().requires_grad_(True))
+    assert dw_chain.packs_built == before
+    torch.testing.assert_close(got_grad.detach(), want, rtol=0, atol=0)
+
+
+def test_moved_model_rebuilds_its_packs():
+    """A move or conversion (Module._apply) and load_state_dict drop the
+    packs, even where nothing changed: fresh buffers restart their version
+    counters and may take freed addresses, so the key alone could repeat.
+    Statistics edited while the model was away are served, not a stale
+    pack."""
+    model, x = _calibrated(3)
+    with torch.no_grad():
+        want = model(x)
+        before = dw_chain.packs_built
+        model.cpu()
+        assert torch.equal(model(x), want)
+        assert dw_chain.packs_built - before == 18
+        model.load_state_dict(model.state_dict())
+        model(x)
+        assert dw_chain.packs_built - before == 36
+        model.double()
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.add_(0.25)
+        model.float()
+        got = model(x)
+        fresh = CSNet(model.lc)
+        fresh.load_state_dict(model.state_dict())
+        fresh.eval()
+        torch.testing.assert_close(got, fresh(x), rtol=0, atol=0)
+    assert not torch.equal(got, want)
