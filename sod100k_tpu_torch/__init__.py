@@ -11,11 +11,14 @@ Layout follows the JAX package:
                and the fused depthwise tail (hand-written CUDA kernel)
     csrc/      CUDA C++ sources, built with nvcc at first use
     data/      u8 wire math (ImageNet normalize, sigmoid quantize)
-    train/     the eval step
+    train/     train and eval steps, the dynamic-weight-decay penalty,
+               optimizers and LR schedules, .pth.tar checkpoints
+    prune/     channel pruning on the state_dict, the slim-model builder
     serve.py, serve_http.py   artifacts, bucketed ServingModel, HTTP daemon
 
-Tensors inside the model are NCHW; the public edges (model forward, eval
-step, ServingModel) keep the JAX package's NHWC layout.
+Tensors inside the model are NCHW; the public edges (model forward, train
+and eval steps, ServingModel) keep the JAX package's NHWC layout. Models
+and checkpoints load onto the card unless the caller names another device.
 """
 
 __version__ = "0.1.0"

@@ -15,7 +15,11 @@ In eval mode each ILBlock's depthwise tail runs fused
 (``ops.dw_chain.dw_tail_fused``): the CUDA kernel on the card, its plain
 version on the CPU, from parameter packs that the block builds once per
 weight set (``ops.dw_chain.TailPacks``). Train mode runs the unfused
-modules, which own the parameters.
+modules, which own the parameters; only a train-mode forward collects the
+dynamic-weight-decay signal (``ops.goct.GapCollector``), as the JAX package
+never routes a collecting forward through the kernel.
+
+The model builds on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from torch import nn
 
 from ..ops.conv import ConvWeight, conv2d, init_conv_
 from ..ops.dw_chain import TailPacks, dw_tail_fused
-from ..ops.goct import GOctCBR, PallMSBlock, SimplifiedGOctCBR
+from ..ops.goct import GapCollector, GOctCBR, PallMSBlock, SimplifiedGOctCBR
 from ..ops.resample import resize_bilinear
 from .layer_config import BlockPlan, Entry, LayerConfig
 
@@ -56,12 +60,12 @@ class ILBlock(nn.Module):
         self.tail_packs = TailPacks()
         super()._load_from_state_dict(*args, **kwargs)
 
-    def forward(self, xset: list) -> list:
-        y = self.conv1x1(xset)
+    def forward(self, xset: list, gap: GapCollector | None = None) -> list:
+        y = self.conv1x1(xset, gap)
         if not self.training:
             return dw_tail_fused(
                 y, self.tail_packs.get(self.conv3x3_1, self.conv3x3_2))
-        return self.conv3x3_2(self.conv3x3_1(y))
+        return self.conv3x3_2(self.conv3x3_1(y, gap), gap)
 
 
 class CSFHead(nn.Module):
@@ -74,8 +78,8 @@ class CSFHead(nn.Module):
         self.ms = PallMSBlock(ms.in_split, ms.dil_split, device=device)
         self.fuse1x1 = GOctCBR(f1.in_split, f1.out_split, 1, device=device)
 
-    def forward(self, xset: list) -> list:
-        return self.fuse1x1(self.ms(self.fuse(xset)))
+    def forward(self, xset: list, gap: GapCollector | None = None) -> list:
+        return self.fuse1x1(self.ms(self.fuse(xset, gap), gap), gap)
 
 
 class CSNet(nn.Module):
@@ -83,7 +87,8 @@ class CSNet(nn.Module):
     ``torch.Generator`` seeded with ``seed`` (BN weight 1, bias 0, running
     mean 0, var 1; PReLU 0.25)."""
 
-    def __init__(self, lc: LayerConfig, *, seed: int = 0, device=None):
+    def __init__(self, lc: LayerConfig, *, seed: int = 0,
+                 device: str | torch.device = "cuda"):
         super().__init__()
         self.lc = lc
         plans = lc.block_plans()
@@ -99,16 +104,21 @@ class CSNet(nn.Module):
             if isinstance(m, ConvWeight):
                 init_conv_(m, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC image batch -> NHWC saliency logits at the input size."""
+    def forward(self, x: torch.Tensor,
+                gap: GapCollector | None = None) -> torch.Tensor:
+        """NHWC image batch -> NHWC saliency logits at the input size;
+        a train-mode forward records the penalty's signal in ``gap``."""
+        if gap is not None and not self.training:
+            raise ValueError("the penalty's signal is collected by a "
+                             "train-mode forward only")
         feat = [x.permute(0, 3, 1, 2).contiguous()]
         ends = {}
         for name in STAGES:
             for block in getattr(self, name):
-                feat = block(feat)
+                feat = block(feat, gap)
             ends[name] = feat
         y = self.oct_fuse([ends["stage2"][0], ends["stage3"][0],
-                           ends["stage4"][0]])
+                           ends["stage4"][0]], gap)
         logits = conv2d(y[0], self.cls_layer.weight, self.cls_layer.bias)
         return resize_bilinear(logits, x.shape[1:3]).permute(0, 2, 3, 1)
 

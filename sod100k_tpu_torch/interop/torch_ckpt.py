@@ -51,13 +51,15 @@ def state_dict_from_pytree(params: dict) -> dict[str, torch.Tensor]:
     return flat
 
 
-def load_checkpoint(path: str) -> tuple[dict[str, torch.Tensor], dict]:
-    """Load a reference .pth.tar; returns (state_dict, metadata dict).
+def load_checkpoint(path: str, map_location: str | torch.device = "cuda"
+                    ) -> tuple[dict[str, torch.Tensor], dict]:
+    """Load a reference .pth.tar onto ``map_location`` (the card unless the
+    caller names another device); returns (state_dict, metadata dict).
 
     Accepts the training-driver format ``{'epoch','arch','state_dict',...}``
     and bare state_dicts. Reference checkpoints hold more than tensors, so
     this unpickles fully: load only checkpoints you trust."""
-    ck = torch.load(path, map_location="cpu", weights_only=False)
+    ck = torch.load(path, map_location=map_location, weights_only=False)
     if isinstance(ck, dict) and "state_dict" in ck:
         return ck["state_dict"], {k: v for k, v in ck.items()
                                   if k != "state_dict"}

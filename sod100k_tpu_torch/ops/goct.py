@@ -13,6 +13,10 @@ The modules own their parameters under the reference's names
 ``bn``, ``prelu``), so a reference state_dict loads strictly. Branch keys
 exist only for branches with channels. Convolutions marked x100 carry the
 reference's Conv2dX100 weight scaling.
+
+A train-mode forward can hand every module a ``GapCollector``: it records,
+per BN, the detached |spatial mean| of the post-PReLU activation, the
+signal of the dynamic-weight-decay penalty (``train/dynamic_wd.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,38 @@ Split = Sequence[int]
 OctSet = list  # list of Optional[torch.Tensor]
 
 DILATIONS = (1, 2, 4, 8, 16)
+
+
+def bn_paths(model: nn.Module) -> dict[nn.Module, str]:
+    """Every BN of ``model`` -> its module name (``stage1.2.conv1x1.bns.0``),
+    which is also its JAX path."""
+    return {m: name for name, m in model.named_modules()
+            if isinstance(m, nn.BatchNorm2d)}
+
+
+class GapCollector:
+    """The penalty's signal of one forward: ``gap[path]`` is the (N, C) f32
+    |spatial mean| of the post-PReLU activation after the BN at ``path``,
+    detached (the JAX package's ``ApplyCtx.gap``, reference
+    ``Oct_bn_hook``). ``paths`` is the model's ``bn_paths``, built once per
+    model; the train step makes a collector per forward and passes it
+    down."""
+
+    def __init__(self, paths: dict[nn.Module, str]):
+        self.paths = paths
+        self.gap: dict[str, torch.Tensor] = {}
+
+    def record(self, bn: nn.BatchNorm2d, y: torch.Tensor) -> None:
+        self.gap[self.paths[bn]] = y.float().mean(dim=(2, 3)).abs().detach()
+
+
+def _norm_act(bn: nn.BatchNorm2d, act: nn.PReLU, x: torch.Tensor,
+              gap: Optional[GapCollector]) -> torch.Tensor:
+    """``norm_act``, recorded in ``gap`` when one is given."""
+    y = norm_act(bn, act, x)
+    if gap is not None:
+        gap.record(bn, y)
+    return y
 
 
 def _offsets(split: Split) -> list[int]:
@@ -115,7 +151,8 @@ class GOctCBR(nn.Module):
         self.bns = nn.ModuleDict({k: _bn(c, device) for k, c in live})
         self.prelus = nn.ModuleDict({k: _prelu(c, device) for k, c in live})
 
-    def forward(self, xset: OctSet) -> OctSet:
+    def forward(self, xset: OctSet, gap: Optional[GapCollector] = None
+                ) -> OctSet:
         if len(self.in_split) == 1 and len(self.out_split) == 1:
             yset = [conv2d(xset[0], self.conv.weight, stride=self.stride,
                            padding=self.padding, weight_scale=100.0)]
@@ -128,7 +165,8 @@ class GOctCBR(nn.Module):
             if y is None or self.out_split[j] == 0:
                 out.append(None)
                 continue
-            out.append(norm_act(self.bns[str(j)], self.prelus[str(j)], y))
+            k = str(j)
+            out.append(_norm_act(self.bns[k], self.prelus[k], y, gap))
         return out
 
 
@@ -145,7 +183,8 @@ class SimplifiedGOctCBR(nn.Module):
         self.bns = nn.ModuleDict({k: _bn(c, device) for k, c in live})
         self.prelus = nn.ModuleDict({k: _prelu(c, device) for k, c in live})
 
-    def forward(self, xset: OctSet) -> OctSet:
+    def forward(self, xset: OctSet, gap: Optional[GapCollector] = None
+                ) -> OctSet:
         out: OctSet = []
         for j, c in enumerate(self.split):
             if c == 0 or xset[j] is None:
@@ -154,7 +193,7 @@ class SimplifiedGOctCBR(nn.Module):
             k = str(j)
             y = conv2d(xset[j], self.convs[k].weight, padding=1, groups=c,
                        weight_scale=100.0)
-            out.append(norm_act(self.bns[k], self.prelus[k], y))
+            out.append(_norm_act(self.bns[k], self.prelus[k], y, gap))
         return out
 
 
@@ -171,12 +210,13 @@ class MSBlock(nn.Module):
         self.bn = _bn(sum(self.dil_split), device)
         self.prelu = _prelu(sum(self.dil_split), device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gap: Optional[GapCollector] = None
+                ) -> torch.Tensor:
         outs = [conv2d(x, self.msconv[str(i)].weight, padding=d, dilation=d,
                        weight_scale=100.0)
                 for i, d in enumerate(DILATIONS) if self.dil_split[i]]
         y = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-        return norm_act(self.bn, self.prelu, y)
+        return _norm_act(self.bn, self.prelu, y, gap)
 
 
 class PallMSBlock(nn.Module):
@@ -190,7 +230,8 @@ class PallMSBlock(nn.Module):
             str(i): MSBlock(int(in_split[i]), ds, device=device)
             for i, ds in enumerate(dil_splits) if self.live[i]})
 
-    def forward(self, xset: OctSet) -> OctSet:
-        return [self.convs[str(i)](xset[i])
+    def forward(self, xset: OctSet, gap: Optional[GapCollector] = None
+                ) -> OctSet:
+        return [self.convs[str(i)](xset[i], gap)
                 if live and xset[i] is not None else None
                 for i, live in enumerate(self.live)]

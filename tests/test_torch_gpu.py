@@ -1,4 +1,5 @@
-"""The CUDA kernel on the card: fused_dw_chain against its plain version.
+"""The CUDA kernel on the card: fused_dw_chain against its plain version;
+and the train step on the card against the CPU.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. Imports neither jax nor the
 JAX package, so it runs on a machine that has only PyTorch:
@@ -16,7 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from sod100k_tpu_torch.arch.csnet import CSNet, calibrate_bn
+from sod100k_tpu_torch.arch.layer_config import init_layers
 from sod100k_tpu_torch.ops import dw_chain
+from sod100k_tpu_torch.prune import build_pruned_csnet, prune
+from sod100k_tpu_torch.train.optim import make_sgd
+from sod100k_tpu_torch.train.step import make_eval_step, make_train_step
 
 pytestmark = pytest.mark.gpu
 
@@ -29,6 +35,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -132,3 +139,128 @@ def test_packed_path_and_refusals(cuda):
         dw_chain.fused_dw_chain_packed(x, packed.cpu())
     with pytest.raises(ValueError, match="pack"):
         dw_chain.fused_dw_chain_packed(x, packed[:, :12].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+
+LC = init_layers(8, (0.5, 0.5))
+
+
+def _train_batch(n=4, hw=32, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"image": rng.integers(0, 256, (n, hw, hw, 3), np.uint8),
+            "target": (rng.random((n, hw, hw, 1)) > 0.5).astype(np.uint8)
+            * 255}
+
+
+def _l2(t) -> float:
+    return float(torch.linalg.vector_norm(t.double()))
+
+
+def test_train_step_matches_cpu(cuda):
+    """One f32 step with the penalty, card against CPU: loss and penalty
+    within rel 1e-4, every gradient within L2-rel 2e-3 (a floor of 1e-6 of
+    the global norm, as tests/test_trajectory.py's ``_tensors_close``, and
+    the same bar globally), BN running statistics within L2-rel 1e-4."""
+    models, out = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = CSNet(LC, seed=3, device=dev)
+        # lr 0, no momentum: the step leaves the weights and keeps the grads
+        step = make_train_step(model, make_sgd(model, momentum=0.0),
+                               flops_weight=3.0, batch_size=4, from_u8=True)
+        out[dev] = {k: float(v) for k, v in
+                    step(_train_batch(), 0.0, 1.0).items()}
+        models[dev] = model
+    for k in ("loss", "penalty"):
+        assert out["cuda"][k] == pytest.approx(out["cpu"][k], rel=1e-4), k
+    want = dict(models["cpu"].named_parameters())
+    got = dict(models["cuda"].named_parameters())
+    gnorm = sum(_l2(p.grad) ** 2 for p in want.values()) ** 0.5
+    total = 0.0
+    for name, p in want.items():
+        err = _l2(got[name].grad.cpu() - p.grad)
+        total += err ** 2
+        assert err / max(_l2(p.grad), 1e-6 * gnorm) < 2e-3, name
+    assert total ** 0.5 / gnorm < 2e-3
+    cuda_buffers = dict(models["cuda"].named_buffers())
+    for name, b in models["cpu"].named_buffers():
+        if "running" in name:
+            err = _l2(cuda_buffers[name].cpu() - b) / _l2(b)
+            assert err < 1e-4, name
+
+
+@pytest.mark.parametrize("foreach", [True, False])
+def test_eval_after_adam_steps_equals_a_fresh_load(cuda, foreach):
+    """Eval (packs built), Adam steps on the card (the multi-tensor
+    ``foreach`` path that torch takes on CUDA by default, and the
+    single-tensor one), eval again: equal to a fresh model loaded with the
+    same state_dict (max |d| <= 1e-5), not to stale packs."""
+    model = CSNet(LC, seed=4, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 32, 32, 3), dtype=np.float32)).cuda()
+    calibrate_bn(model, x)
+    evaluate = make_eval_step(model)
+    before = evaluate(x).clone()
+    opt = torch.optim.Adam(model.parameters(), lr=0.0, betas=(0.9, 0.99),
+                           foreach=foreach)
+    step = make_train_step(model, opt, flops_weight=3.0, batch_size=4,
+                           from_u8=True)
+    for seed in range(3):
+        step(_train_batch(seed=10 + seed), 1e-3, 1.0)
+    got = evaluate(x)
+    fresh = CSNet(LC, device=cuda)
+    fresh.load_state_dict(model.state_dict(), strict=True)
+    want = make_eval_step(fresh)(x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (got - before).abs().max().item() > 1e-4  # the steps moved it
+
+
+def _pruned_tail_shapes(n=2, hw=32):
+    """(N, C, H, W) of every live tail branch of a slim model: the JAX
+    package's prune-test recipe (gammas uniform in [0, 1], one channel per
+    branch kept) at threshold 0.3, with stage2.1's branch 1 emptied."""
+    model = CSNet(LC, device="cpu")
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                g = torch.from_numpy(rng.uniform(0, 1, m.num_features)
+                                     .astype(np.float32))
+                g[int(rng.integers(m.num_features))] = 0.9
+                if name == "stage2.1.conv1x1.bns.1":
+                    g[:] = 0.0
+                m.weight.copy_(g)
+    sd, lc, _ = prune(model.state_dict(), LC, 0.3)
+    slim = build_pruned_csnet(lc, sd, device="cpu")
+    shapes = []
+    for block in (b for s in ("stage0", "stage1", "stage2", "stage3",
+                              "stage4") for b in getattr(slim, s)):
+        block.conv1x1.register_forward_hook(
+            lambda m, i, out: shapes.extend(
+                tuple(y.shape) for y in out if y is not None))
+    slim.eval()
+    with torch.no_grad():
+        slim(torch.zeros(n, hw, hw, 3))
+    return shapes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 32, 256])
+def test_kernel_matches_plain_at_pruned_tail_shapes(cuda, dtype, n):
+    """The plan picks planes per item from N*C: at N=256 the ragged widths
+    give items of several planes with a short last group."""
+    shapes = _pruned_tail_shapes(n=n)
+    assert len(shapes) == 32  # 33 live branches, one emptied by pruning
+    assert len({s[1] for s in shapes}) > 4  # ragged channel counts
+    short = 0
+    for seed, shape in enumerate(shapes):
+        plan = dw_chain.device_plan(*shape, dtype, cuda.index or 0)
+        short += plan.planes > 1 and shape[0] * shape[1] % plan.planes != 0
+        x, params = _inputs(shape, dtype, cuda, seed=seed)
+        got = dw_chain.fused_dw_chain(x, *params)
+        torch.cuda.synchronize()
+        _check(got, x, params, dtype)
+    assert n < 256 or short > 0

@@ -43,7 +43,7 @@ HW = (32, 32)
 
 @pytest.fixture(scope="module")
 def model():
-    m = CSNet(init_layers(8, (0.5, 0.5)), seed=2)
+    m = CSNet(init_layers(8, (0.5, 0.5)), seed=2, device="cpu")
     rng = np.random.default_rng(0)
     calibrate_bn(m, torch.from_numpy(
         rng.standard_normal((4, *HW, 3), dtype=np.float32)))
