@@ -63,9 +63,36 @@ kernel (csrc/dw_chain.cu). Phases; any failure exits non-zero:
    synchronized; the profiler's device time, idle share and top kernels;
    peak memory), the f32 step, and the slim model's B=32 bf16 eval forward,
    whose launches over its 20 timed forwards are checked and reported as
-   ``slim_launches`` (per forward).
+   ``slim_launches`` (per forward);
+9. the dataset on the card, from phase 7's trained weights (recalibrated
+   BN statistics for the sweeps):
+9a. a synthetic split of 1,000 PNG pairs at 300x400, alternating
+   orientation (ECSSD's count and about its size), written with
+   ``make_synth_split`` to a temporary directory and read back through
+   ``SalData``: pair 0 bit-equal to the arrays written;
+9b. the TESTALL sweep: ``build_resident_val_dataset`` (B=32, wF tables)
+   and ``make_resident_salmetric_fn`` in f32 and bf16: 33 launches per
+   forward, every metric finite and in range; the f32 sweep's first 64
+   images equal the port on the CPU and the host protocol on the card
+   (a B=32 forward, then per image the f32 resize back, trunc, the
+   accumulator, S and the host weighted F) at the JAX test's bars; the
+   sweep's model is phase 7's with BN statistics recalibrated on 12 of the
+   split's images: MAE/maxF/adpF/adpE/S 1e-4, P/R/E
+   curves 2e-4, wF 5e-4;
+9c. the metric functions alone on a padded batch of 32 (degenerate GTs, an
+   all-masked row), card vs CPU: counts bit-equal, MAE/P/R/E and adaptive
+   F/E within 1e-6, S and wF within 1e-5;
+9d. one resident epoch (a 256^2 store of the split's first 480 pairs,
+   B=24 bf16 Adam-dwd, penalty on, max_crop 17, an explicit generator):
+   finite losses; the resident val MAE over the 1,000 pairs equals the
+   host protocol within 1e-4; one f32 batch with one generator seed twice
+   gives the same loss (rel 1e-6); a DUTS-TR-sized store (10,553 pairs at
+   256^2) is built and its bytes printed;
+9e. times (not gated): sweep img/s with and without wF, device time per
+   batch split into the forward and the rest, the epoch beside phase 8b's
+   step, the PNG read rate, and whether OpenCV's C++ library is present.
 
-Needs torch with CUDA and nvcc; no jax, cv2 or yaml. The second line from
+Needs torch with CUDA and nvcc; no jax, cv2, PIL or yaml. The second line from
 the end is a JSON summary of the kernels; the last line is the run's JSON
 result.
 
@@ -95,7 +122,22 @@ import torch
 
 from sod100k_tpu_torch.arch.csnet import CSNet, calibrate_bn, count_params
 from sod100k_tpu_torch.arch.layer_config import init_layers
-from sod100k_tpu_torch.data.pipeline import normalize_u8
+from sod100k_tpu_torch.data.image_io import (resize_f32_linear,
+                                             resize_u8_linear)
+from sod100k_tpu_torch.data.pipeline import SalData, normalize_u8
+from sod100k_tpu_torch.data.resident import (build_resident_dataset,
+                                             build_resident_val_dataset,
+                                             make_resident_epoch_fn,
+                                             make_resident_salmetric_fn,
+                                             make_resident_val_fn)
+from sod100k_tpu_torch.data.synth import make_synth_split, synth_pairs
+from sod100k_tpu_torch.metrics import salmetric
+from sod100k_tpu_torch.metrics.salmetric import (SalMetricAccumulator,
+                                                 result_from_sums)
+from sod100k_tpu_torch.metrics.smeasure import s_measure_batch
+from sod100k_tpu_torch.metrics.wfmeasure import (precompute_wf_tables,
+                                                 weighted_f_measure,
+                                                 wf_per_image_device)
 from sod100k_tpu_torch.ops import cuda_lib, dw_chain
 from sod100k_tpu_torch.prune import build_pruned_csnet, layer_gammas, prune
 from sod100k_tpu_torch.serve import export_artifact, load_artifact
@@ -793,11 +835,12 @@ def step_ms(step, batch, reps: int) -> list:
 
 
 def phase_train_times(model: CSNet, slim: CSNet, slim_calls: int,
-                      batches: list, gpu: str) -> int:
+                      batches: list, gpu: str) -> tuple[int, dict]:
     """The B=24 train step (bf16 and f32) and the slim B=32 bf16 eval
     forward, on copies of the trained models. Returns the slim forward's
     kernel launches per forward, counted over its timed run (checked
-    against its ``slim_calls`` tail calls)."""
+    against its ``slim_calls`` tail calls), and the bf16 step's host and
+    device ms."""
     timed = copy_of(model, "cuda")
     step = make_train_step(timed, make_adam_dwd(timed), **PENALTY,
                            batch_size=TRAIN_BATCH,
@@ -816,6 +859,7 @@ def phase_train_times(model: CSNet, slim: CSNet, slim_calls: int,
         t = e.self_device_time_total / 5 / 1e3
         say(f"    {t:8.4f} ms {t / dev:6.1%} {e.count / 5:7.1f}/step  "
             f"{e.key[:110]}")
+    step_times = {"ms": ms, "device_ms": dev}
     del timed, step
 
     timed = copy_of(model, "cuda")
@@ -857,7 +901,458 @@ def phase_train_times(model: CSNet, slim: CSNet, slim_calls: int,
         f"kernel launches in the 20 forwards  [{gpu}]")
     check(launches == 20 * slim_calls,
           f"{launches} launches in 20 slim forwards, want 20 x {slim_calls}")
-    return launches // 20
+    return launches // 20, step_times
+
+
+# ---------------------------------------------------------------------------
+# The dataset on the card (phase 9)
+
+SPLIT_N = 1000          # ECSSD, the reference's own test set, has 1,000
+SPLIT_HW = (300, 400)   # about ECSSD's image size; orientation alternates
+SWEEP_BATCH = 32
+PARITY_IMAGES = 64
+PNG_RATE_PAIRS = 100    # read on one thread for the host's PNG rate
+STORE_HW = (256, 256)   # the resident training store (the JAX default)
+# the epoch's store: the split's first 480 pairs (20 steps at B=24), cut
+# from 1,000 to keep phase 9 near a minute on a slow host
+EPOCH_PAIRS = 480
+MAX_CROP = 17           # 15 px at 224 expressed at the 256 store scale
+DUTS_TR_N = 10553       # DUTS-TR, the reference's training set
+# the JAX package's bars for the sweep against the host protocol
+# (tests/test_device_pipeline.py:347-355)
+SWEEP_BARS = dict(scalar=1e-4, curve=2e-4, wf=5e-4)
+
+
+class FirstItems:
+    """The first ``n`` items of a dataset with the ``_decode_u8`` interface."""
+
+    def __init__(self, ds, n: int):
+        self.ds, self.n = ds, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def _decode_u8(self, i: int):
+        return self.ds._decode_u8(i)
+
+
+class InMemoryPairs:
+    """``n`` items with the ``_decode_u8`` interface, cycling a small pool
+    of seeded store-size pairs (a DUTS-TR-sized dataset without its files
+    or its host memory)."""
+
+    def __init__(self, n: int, hw, pool: int = 16, seed: int = 11):
+        rng = np.random.default_rng(seed)
+        self.n = n
+        self.pairs = [(rng.integers(0, 256, (*hw, 3), np.uint8),
+                       (rng.random(hw) > 0.5).astype(np.uint8) * 255)
+                      for _ in range(pool)]
+
+    def __len__(self) -> int:
+        return self.n
+
+    def _decode_u8(self, i: int):
+        return self.pairs[i % len(self.pairs)]
+
+
+def nbytes(data: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in data.values()
+               if isinstance(v, torch.Tensor))
+
+
+def check_metric_ranges(res: dict, what: str) -> None:
+    """Every metric finite and in its range; E-measure may pass 1 by
+    n/(n-1) on degenerate GTs (PySODMetrics' normalization)."""
+    for k in ("mae", "max_f", "mean_f", "adaptive_f", "s_measure",
+              "weighted_f", "precision", "recall"):
+        v = np.asarray(res[k])
+        check(np.isfinite(v).all() and (v >= 0).all() and (v <= 1).all(),
+              f"{what}: {k} finite and in [0, 1]")
+    for k in ("emeasure", "adaptive_e"):
+        v = np.asarray(res[k])
+        check(np.isfinite(v).all() and (v >= 0).all() and (v <= 1.001).all(),
+              f"{what}: {k} finite and in [0, 1.001]")
+
+
+def result_distance(got: dict, want: dict) -> dict:
+    """Largest |difference| per metric group."""
+    return {
+        "scalar": max(abs(got[k] - want[k]) for k in (
+            "mae", "max_f", "adaptive_f", "adaptive_e", "s_measure")),
+        "curve": max(float(np.abs(got[k] - want[k]).max())
+                     for k in ("precision", "recall", "emeasure")),
+        "wf": abs(got["weighted_f"] - want["weighted_f"])}
+
+
+def check_results_close(got: dict, want: dict, what: str) -> None:
+    d = result_distance(got, want)
+    say(f"  {what}: MAE/maxF/adpF/adpE/S max |d| {d['scalar']:.3e} "
+        f"(<= {SWEEP_BARS['scalar']:g}), P/R/E curves {d['curve']:.3e} "
+        f"(<= {SWEEP_BARS['curve']:g}), wF {d['wf']:.3e} "
+        f"(<= {SWEEP_BARS['wf']:g})")
+    check(all(d[k] <= SWEEP_BARS[k] for k in d), what)
+
+
+def phase_split(split_dir: str) -> tuple:
+    """9a: write the synthetic split, read it back through SalData, check
+    the first pair bit-equal to the arrays written; the host PNG read rate
+    (one thread, every pair, filling SalData's cache)."""
+    t0 = time.perf_counter()
+    make_synth_split(split_dir, SPLIT_N, hw=SPLIT_HW)
+    t_write = time.perf_counter() - t0
+    ds = SalData(split_dir, HW, mode="val", cache=True)
+    check(len(ds) == SPLIT_N, f"{len(ds)} pairs in the split")
+
+    def read(i):
+        return sum(a.nbytes for a in ds._decode_u8(i))
+
+    t0 = time.perf_counter()
+    raw1 = sum(read(i) for i in range(PNG_RATE_PAIRS))
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        raw = sum(pool.map(read, range(PNG_RATE_PAIRS, SPLIT_N)))
+    t_read = time.perf_counter() - t0
+    n_rest = SPLIT_N - PNG_RATE_PAIRS
+    img, gt = next(synth_pairs(1, hw=SPLIT_HW))
+    item = ds.raw_item(0)
+    same = (np.array_equal(item["image_u8"], img)
+            and np.array_equal(item["gt_u8"], gt))
+    files = sum(os.path.getsize(os.path.join(split_dir, d, f))
+                for d in ("images", "GT")
+                for f in os.listdir(os.path.join(split_dir, d)))
+    say(f"  wrote {SPLIT_N} PNG pairs at {SPLIT_HW} (alternating "
+        f"orientation), {files / 1e6:.1f} MB, in {t_write:.2f} s; read back: "
+        f"{PNG_RATE_PAIRS} pairs on one host thread at "
+        f"{PNG_RATE_PAIRS / t_one:.1f} pairs/s ({raw1 / t_one / 1e6:.1f} MB/s "
+        f"decoded), the other {n_rest} on 8 threads at "
+        f"{n_rest / t_read:.1f} pairs/s ({raw / t_read / 1e6:.1f} MB/s); "
+        f"pair 0 bit-equal to the arrays written: {same}")
+    check(same, "pair 0 reads back bit-equal")
+    check(ds._decode_u8(1)[1].shape == SPLIT_HW[::-1],
+          "orientation alternates")
+    return ds, {"png_pairs_s": PNG_RATE_PAIRS / t_one,
+                "png_mb_s": raw1 / t_one / 1e6,
+                "png_pairs_s_8": n_rest / t_read,
+                "png_mb_s_8": raw / t_read / 1e6}
+
+
+def host_protocol(model: CSNet, ds, n: int, batch: int) -> dict:
+    """The host protocol on the card for the first ``n`` pairs: the u8
+    resize to the test size, an f32 forward on the card at ``batch`` images
+    a call (cli/common.py val_mae batches its forward too); per image, the
+    f32 resize back to native size on the host and trunc(x * 255); then
+    SalMetricAccumulator and s_measure_batch on the card and the host
+    weighted_f_measure."""
+    acc = SalMetricAccumulator()
+    evaluate = make_eval_step(model, from_u8=True)
+    pairs = [ds._decode_u8(i) for i in range(n)]
+    x = torch.from_numpy(np.stack([resize_u8_linear(img, HW)
+                                   for img, _ in pairs])).cuda()
+    preds = torch.cat([evaluate(x[b:b + batch])[..., 0]
+                       for b in range(0, n, batch)]).cpu().numpy()
+    single = torch.cat([evaluate(x[i:i + 1])[..., 0]
+                        for i in range(n)]).cpu().numpy()
+    s_sum = wf_sum = 0.0
+    for pred, (_, gt) in zip(preds, pairs):
+        sal255 = np.trunc(resize_f32_linear(pred, gt.shape) * 255.0)
+        acc.update_batch(sal255[None], gt[None])
+        s_sum += s_measure_batch(
+            torch.from_numpy(sal255[None] / 255.0).cuda(),
+            torch.from_numpy((gt[None] > 128).astype(np.float32)).cuda()
+        ).item()
+        wf_sum += weighted_f_measure(sal255 / 255.0, gt > 128)
+    res = acc.result()
+    res["s_measure"] = s_sum / n
+    res["weighted_f"] = wf_sum / n
+    return res, preds, single
+
+
+def phase_sweep(model: CSNet, ds, gpu: str) -> dict:
+    """9b: the TESTALL sweep over the whole split, resident on the card,
+    in f32 and bf16 at B=32; launches; ranges; the f32 sweep's first 64
+    images against the port on the CPU and against the host protocol."""
+    t0 = time.perf_counter()
+    data = build_resident_val_dataset(ds, HW, SWEEP_BATCH,
+                                      with_wf_tables=True)
+    t_build = time.perf_counter() - t0
+    canvas = data.pop("_canvas_hw")
+    nb = data["image_u8"].shape[0] // SWEEP_BATCH
+    wf = data["wf_idx"].nbytes + data["wf_weight"].nbytes
+    say(f"  store on the card: {nbytes(data) / 1e9:.3f} GB ({wf / 1e9:.3f} "
+        f"GB of wF tables), canvas {canvas}, {nb} batches of "
+        f"{SWEEP_BATCH}; built in {t_build:.2f} s (decodes cached)")
+    out = {"data": data, "canvas": canvas, "nb": nb}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        fn = make_resident_salmetric_fn(
+            make_eval_step(model, from_u8=True, compute_dtype=dtype),
+            batch_size=SWEEP_BATCH, canvas_hw=canvas)
+        dw_chain.launches = 0
+        t0 = time.perf_counter()
+        sums = fn(data)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dw_chain.launches
+        res = result_from_sums(sums)
+        say(f"  {name} sweep of {SPLIT_N} images (first run, warm-up "
+            f"included): {dt:.2f} s; MAE {res['mae']:.5f}, maxF "
+            f"{res['max_f']:.5f}, meanF {res['mean_f']:.5f}, adpF "
+            f"{res['adaptive_f']:.5f}, maxE {res['max_e']:.5f}, adpE "
+            f"{res['adaptive_e']:.5f}, S {res['s_measure']:.5f}, wF "
+            f"{res['weighted_f']:.5f}; {launches} kernel launches")
+        check(launches == CALLS_PER_FORWARD * nb,
+              f"{launches} launches in the {name} sweep, want "
+              f"{CALLS_PER_FORWARD} x {nb}")
+        check_metric_ranges(res, f"{name} sweep")
+        out[name] = (sums, res)
+    d = result_distance(out["bf16"][1], out["f32"][1])
+    say(f"  bf16 sweep against f32 (not gated): scalars {d['scalar']:.3e}, "
+        f"curves {d['curve']:.3e}, wF {d['wf']:.3e}")
+
+    first = PARITY_IMAGES // SWEEP_BATCH
+    card = result_from_sums({k: v[:first] for k, v in out["f32"][0].items()})
+    sub = FirstItems(ds, PARITY_IMAGES)
+    cpu_data = build_resident_val_dataset(sub, HW, SWEEP_BATCH, device="cpu",
+                                          with_wf_tables=True)
+    cpu_canvas = cpu_data.pop("_canvas_hw")
+    t0 = time.perf_counter()
+    cpu = result_from_sums(make_resident_salmetric_fn(
+        make_eval_step(copy_of(model, "cpu"), from_u8=True),
+        batch_size=SWEEP_BATCH, canvas_hw=cpu_canvas)(cpu_data))
+    say(f"  the port on the CPU, first {PARITY_IMAGES} images, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_results_close(card, cpu, f"f32 sweep on the card vs the CPU, first "
+                        f"{PARITY_IMAGES} images")
+    host, preds, single = host_protocol(model, ds, PARITY_IMAGES,
+                                        SWEEP_BATCH)
+    check_results_close(card, host, f"f32 sweep vs the host protocol on the "
+                        f"card, first {PARITY_IMAGES} images")
+    flips = int((np.trunc(preds * 255) != np.trunc(single * 255)).sum())
+    say(f"  f32 maps of a B=1 forward per image against the B={SWEEP_BATCH} "
+        f"forward (not gated): max |d| {np.abs(preds - single).max():.3e}, "
+        f"{flips} of {preds.size} quantized levels differ")
+    out["launches_per_forward"] = CALLS_PER_FORWARD
+    return out
+
+
+def metric_batch(ds, canvas) -> tuple:
+    """One padded batch of 32 on the canvas: the split's first 29 GTs with
+    a seeded noisy map around each, an all-background GT, an
+    all-foreground GT and an all-masked row."""
+    rng = np.random.default_rng(12)
+    n = SWEEP_BATCH
+    sal = np.zeros((n, *canvas), np.float32)
+    gt = np.zeros((n, *canvas), np.uint8)
+    mask = np.zeros((n, *canvas), np.float32)
+    hw = np.zeros((n, 2), np.int32)
+    for i in range(n - 1):
+        g = ds._decode_u8(i)[1].copy()
+        if i == n - 3:
+            g[:] = 0
+        elif i == n - 2:
+            g[:] = 255
+        h, w = g.shape
+        gt[i, :h, :w] = g
+        sal[i, :h, :w] = np.trunc(np.clip(
+            g * 0.7 + rng.normal(40, 50, g.shape), 0, 255))
+        mask[i, :h, :w] = 1.0
+        hw[i] = (h, w)
+    return sal, gt, mask, hw
+
+
+def metric_outputs(sal, gt, mask, tables, device) -> dict:
+    t = {k: torch.from_numpy(v).to(device) for k, v in
+         dict(sal=sal, gt=gt, mask=mask, **tables).items()}
+    gtf = t["gt"].float()
+    out = dict(zip(("a", "tp", "b", "n"), salmetric.threshold_counts(
+        t["sal"], gtf, t["mask"])))
+    out.update(zip(("mae", "p", "r", "e"), salmetric.per_image_stats(
+        t["sal"], gtf, t["mask"])))
+    out["af"] = salmetric.adaptive_f_per_image(t["sal"], gtf, t["mask"])
+    out["ae"] = salmetric.adaptive_e_per_image(t["sal"], gtf, t["mask"])
+    out["s"] = s_measure_batch(t["sal"] / 255.0, (gtf > 128).float(),
+                               t["mask"])
+    out["wf"] = wf_per_image_device(t["sal"] / 255.0, t["gt"], t["mask"],
+                                    t["wf_idx"], t["wf_weight"])
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def phase_metrics(ds, canvas) -> None:
+    """9c: the metric functions alone, card against CPU, on one padded
+    batch of 32 with degenerate GTs and an all-masked row."""
+    sal, gt, mask, hw = metric_batch(ds, canvas)
+    tables = precompute_wf_tables(gt, hw)
+    cpu = metric_outputs(sal, gt, mask, tables, "cpu")
+    card = metric_outputs(sal, gt, mask, tables, "cuda")
+    counts = all(torch.equal(card[k], cpu[k]) for k in ("a", "tp", "b", "n"))
+    bars = {"mae": 1e-6, "p": 1e-6, "r": 1e-6, "e": 1e-6, "af": 1e-6,
+            "ae": 1e-6, "s": 1e-5, "wf": 1e-5}
+    d = {k: float(torch.nan_to_num(card[k] - cpu[k]).abs().max())
+         for k in bars}
+    same_nan = all(torch.equal(card[k].isnan(), cpu[k].isnan()) for k in bars)
+    say(f"  batch of {SWEEP_BATCH} on {canvas}: counts bit-equal {counts}; "
+        + ", ".join(f"{k} {v:.2e} (<= {bars[k]:g})" for k, v in d.items())
+        + f"; adaptive F/E of the all-masked row {card['af'][-1]:.1f}/"
+        f"{card['ae'][-1]:.1f}")
+    check(counts, "threshold counts bit-equal, card vs CPU")
+    check(same_nan and all(d[k] <= bars[k] for k in bars),
+          "metrics card vs CPU")
+    check(card["af"][-1] == 0 and card["ae"][-1] == 0,
+          "the all-masked row scores 0")
+
+
+def phase_epoch(model: CSNet, ds, sweep: dict, gpu: str) -> dict:
+    """9d: a resident training epoch (a 256^2 store of the split's first
+    EPOCH_PAIRS pairs, B=24 bf16 Adam-dwd, penalty on, max_crop 17, an
+    explicit generator), then the
+    resident validation against the host protocol; the same seed twice in
+    f32 on one batch; a DUTS-TR-sized store."""
+    t0 = time.perf_counter()
+    store = build_resident_dataset(FirstItems(ds, EPOCH_PAIRS), STORE_HW)
+    say(f"  training store {tuple(store['image_u8'].shape)}: "
+        f"{nbytes(store) / 1e6:.1f} MB on the card, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    trained = copy_of(model, "cuda")
+    step = make_train_step(trained, make_adam_dwd(trained), **PENALTY,
+                           batch_size=TRAIN_BATCH,
+                           compute_dtype=torch.bfloat16)
+    epoch = make_resident_epoch_fn(step, batch_size=TRAIN_BATCH, out_hw=HW,
+                                   max_crop=MAX_CROP)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, pens = epoch(store, gen, LR, 1.0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nb = len(losses)
+    losses, pens = losses.cpu().numpy(), pens.cpu().numpy()
+    say(f"  epoch of {nb} steps ({nb * TRAIN_BATCH} images) in {dt:.2f} s: "
+        f"{nb * TRAIN_BATCH / dt:.1f} img/s, {dt / nb * 1e3:.1f} ms per step "
+        f"(first epoch, warm-up included); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, penalty {pens[0]:.1f} -> {pens[-1]:.1f}")
+    check(np.isfinite(losses).all() and np.isfinite(pens).all(),
+          "finite epoch losses")
+
+    data, canvas = sweep["data"], sweep["canvas"]
+    evaluate = make_eval_step(trained, from_u8=True)
+    mae = make_resident_val_fn(evaluate, batch_size=SWEEP_BATCH,
+                               canvas_hw=canvas)(data).item()
+    hws, gts = data["hw"].cpu().numpy(), data["gt_u8"].cpu().numpy()
+    preds = torch.cat([
+        evaluate(data["image_u8"][b:b + SWEEP_BATCH])[..., 0]
+        for b in range(0, SPLIT_N, SWEEP_BATCH)]).cpu().numpy()
+
+    def image_mae(j: int) -> float:
+        h, w = hws[j]
+        q = np.trunc(resize_f32_linear(preds[j], (h, w)) * 255.0) / 255.0
+        return float(np.abs(q - gts[j, :h, :w] / 255.0).mean())
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        host = sum(pool.map(image_mae, range(SPLIT_N))) / SPLIT_N
+    say(f"  resident val MAE {mae:.6f}, host protocol on the card "
+        f"{host:.6f}: |d| {abs(mae - host):.2e} (<= 1e-4)")
+    check(abs(mae - host) <= 1e-4, "resident val MAE vs the host protocol")
+
+    one = {k: v[:TRAIN_BATCH] for k, v in store.items()}
+    again = []
+    for _ in range(2):
+        m = copy_of(model, "cuda")
+        f32_step = make_train_step(m, make_adam_dwd(m), **PENALTY,
+                                   batch_size=TRAIN_BATCH)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        again.append(make_resident_epoch_fn(
+            f32_step, batch_size=TRAIN_BATCH, out_hw=HW,
+            max_crop=MAX_CROP)(one, g, LR, 1.0)[0].item())
+    say(f"  one f32 batch, the same generator seed twice: losses "
+        f"{again[0]:.8f} and {again[1]:.8f}")
+    check(abs(again[0] - again[1]) <= 1e-6 * abs(again[0]),
+          "the same seed gives the same loss")
+
+    # the idle share: the profiler's device time over a 4-step epoch
+    four = {k: v[:4 * TRAIN_BATCH] for k, v in store.items()}
+    kernels, dev = profile_kernels(lambda: epoch(four, gen, LR, 1.0), 1)
+    dev_step = dev / 4
+    say(f"  epoch step: device {dev_step:.3f} ms by the profiler (4 steps), "
+        f"host {dt / nb * 1e3:.3f} ms: {1 - dev_step / (dt / nb * 1e3):.1%} "
+        f"idle  [{gpu}]")
+    del store, trained, step, epoch
+
+    t0 = time.perf_counter()
+    big = build_resident_dataset(InMemoryPairs(DUTS_TR_N, STORE_HW), STORE_HW)
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t0
+    say(f"  a DUTS-TR-sized store ({DUTS_TR_N} pairs at {STORE_HW}, in "
+        f"memory): {nbytes(big) / 1e9:.3f} GB on the card, built in "
+        f"{t_big:.2f} s")
+    del big
+    return {"img_s": nb * TRAIN_BATCH / dt, "step_ms": dt / nb * 1e3,
+            "device_step_ms": dev_step}
+
+
+def phase_dataset_times(model: CSNet, sweep: dict, epoch: dict,
+                        train_step: dict, split: dict, gpu: str) -> None:
+    """9e: sweep img/s at B=32 bf16 with and without wF; the profiler's
+    device time per batch, forward against metrics; the epoch beside phase
+    8b's step; the PNG read rate; whether OpenCV's C++ library is there."""
+    data, canvas = sweep["data"], sweep["canvas"]
+    evaluate = make_eval_step(model, from_u8=True,
+                              compute_dtype=torch.bfloat16)
+    no_wf = {k: v for k, v in data.items() if not k.startswith("wf_")}
+    fn = make_resident_salmetric_fn(evaluate, batch_size=SWEEP_BATCH,
+                                    canvas_hw=canvas)
+    times = {"with wF": [], "without wF": []}
+    for what in ("with wF", "without wF", "without wF", "with wF"):
+        d = data if what == "with wF" else no_wf
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(d)
+        torch.cuda.synchronize()
+        times[what].append(time.perf_counter() - t0)
+    for what, ts in times.items():
+        say(f"  sweep B={SWEEP_BATCH} bf16 {what}: "
+            + ", ".join(f"{SPLIT_N / t:.1f}" for t in ts)
+            + f" img/s in two runs ({', '.join(f'{t / sweep['nb'] * 1e3:.2f}'
+                                            for t in ts)} ms per batch)  "
+            f"[{gpu}]")
+    wall_batch = min(times["with wF"]) / sweep["nb"] * 1e3
+
+    one = {k: v[:SWEEP_BATCH] for k, v in data.items()}
+    fn = make_resident_salmetric_fn(evaluate, batch_size=SWEEP_BATCH,
+                                    canvas_hw=canvas)
+    pred = evaluate(one["image_u8"])
+    # the stage after the forward alone: the same sweep fed this forward
+    rest_fn = make_resident_salmetric_fn(lambda img: pred,
+                                         batch_size=SWEEP_BATCH,
+                                         canvas_hw=canvas)
+    _, total = profile_kernels(lambda: fn(one), 3)
+    _, fwd = profile_kernels(lambda: evaluate(one["image_u8"]), 3)
+    rest_kernels, rest = profile_kernels(lambda: rest_fn(one), 3)
+    say(f"  per batch (bf16, with wF), profiler: device {total:.3f} ms; the "
+        f"forward alone {fwd:.3f} ms, the rest alone (resize back, "
+        f"quantization, metrics) {rest:.3f} ms; wall {wall_batch:.3f} ms per "
+        f"batch in the sweep: {1 - total / wall_batch:.1%} idle  [{gpu}]")
+    for e in rest_kernels[:8]:
+        t = e.self_device_time_total / 3 / 1e3
+        say(f"    {t:8.4f} ms {t / rest:6.1%} {e.count / 3:6.1f}/batch  "
+            f"{e.key[:100]}")
+    say(f"  epoch {epoch['img_s']:.1f} img/s, {epoch['step_ms']:.3f} ms per "
+        f"step, device {epoch['device_step_ms']:.3f} ms "
+        f"({1 - epoch['device_step_ms'] / epoch['step_ms']:.1%} idle); phase "
+        f"8b's step on blob batches: {train_step['ms']:.3f} ms, device "
+        f"{train_step['device_ms']:.3f} ms "
+        f"({1 - train_step['device_ms'] / train_step['ms']:.1%} idle)  "
+        f"[{gpu}]")
+    say(f"  PNG read on the host: {split['png_pairs_s']:.1f} pairs/s, "
+        f"{split['png_mb_s']:.1f} MB/s decoded on one thread; "
+        f"{split['png_pairs_s_8']:.1f} pairs/s, {split['png_mb_s_8']:.1f} "
+        f"MB/s on 8")
+    try:
+        rc = subprocess.run(["pkg-config", "--exists", "opencv4"]).returncode
+        found = "found" if rc == 0 else "not found"
+    except FileNotFoundError:
+        found = "no pkg-config"
+    say(f"  OpenCV 4 C++ library (pkg-config --exists opencv4, for the "
+        f"native SalMetric later): {found}")
 
 
 # --variants: A/B of the kernel's plan sizes (module constants of
@@ -1020,8 +1515,32 @@ def main() -> None:
     slim, slim_calls = phase_prune(trained, batches)
 
     say("phase 8b: training times (not gated)")
-    slim_launches = phase_train_times(trained, slim, slim_calls, batches,
-                                      gpu)
+    slim_launches, train_step = phase_train_times(trained, slim, slim_calls,
+                                                  batches, gpu)
+
+    say("phase 9: the dataset on the card")
+    t9 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as split_dir:
+        say(f"9a: a synthetic split of {SPLIT_N} PNG pairs")
+        ds, split = phase_split(split_dir)
+        # phase 7's weights with BN statistics recalibrated on 12 of the
+        # split's images: the running statistics lag the weights, and the
+        # split's discs have another colour than phase 7's
+        sweep_model = copy_of(trained, "cuda")
+        calibrate_bn(sweep_model, normalize_u8(torch.from_numpy(np.stack([
+            resize_u8_linear(ds._decode_u8(i)[0], HW)
+            for i in range(SPLIT_N - 12, SPLIT_N)])).cuda()))
+        say(f"9b: the TESTALL sweep, B={SWEEP_BATCH}, f32 and bf16")
+        sweep = phase_sweep(sweep_model, ds, gpu)
+        say("9c: the metrics alone, card vs CPU")
+        phase_metrics(ds, sweep["canvas"])
+        say(f"9d: a resident training epoch (B={TRAIN_BATCH} bf16, "
+            f"Adam-dwd, penalty on) and validation")
+        epoch = phase_epoch(trained, ds, sweep, gpu)
+        say("9e: times (not gated)")
+        phase_dataset_times(sweep_model, sweep, epoch, train_step, split,
+                            gpu)
+    say(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "fused_dw_chain", "route": "cuda",
@@ -1036,6 +1555,7 @@ def main() -> None:
         "library_ms": tot["library"], "device_ms": tot["device"],
         "ms_by": by["device"], "library_ms_by": by["library"],
         "host_us": tot["host"], "train_eval_launches": train_launches,
+        "sweep_launches": sweep["launches_per_forward"],
         "slim_launches": slim_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

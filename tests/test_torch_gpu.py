@@ -264,3 +264,180 @@ def test_kernel_matches_plain_at_pruned_tail_shapes(cuda, dtype, n):
         torch.cuda.synchronize()
         _check(got, x, params, dtype)
     assert n < 256 or short > 0
+
+
+# ---------------------------------------------------------------------------
+# The dataset path on the card: metrics, front-end, resident sweep, prefetch
+
+
+def _metric_batch(seed=0, canvas=(96, 112)):
+    """A padded batch: blob GTs at ragged sizes, an all-background and an
+    all-foreground GT, an all-masked row; sal in [0, 255] integral."""
+    rng = np.random.default_rng(seed)
+    hw = np.asarray([(48, 96), (80, 80), (96, 112), (55, 48), (50, 60),
+                     (40, 70), (0, 0)], np.int32)
+    n = len(hw)
+    sal = np.zeros((n, *canvas), np.float32)
+    gt = np.zeros((n, *canvas), np.uint8)
+    mask = np.zeros((n, *canvas), np.float32)
+    yy, xx = np.mgrid[0:canvas[0], 0:canvas[1]]
+    for i, (h, w) in enumerate(hw):
+        blob = (yy - 30) ** 2 + (xx - 35) ** 2 < int(rng.integers(8, 25)) ** 2
+        g = blob * 255
+        if i == 4:
+            g[:] = 0
+        elif i == 5:
+            g[:] = 255
+        gt[i, :h, :w] = g[:h, :w]
+        sal[i, :h, :w] = np.trunc(np.clip(
+            g[:h, :w] * 0.7 + rng.normal(40, 50, (h, w)), 0, 255))
+        mask[i, :h, :w] = 1.0
+    return sal, gt, mask, hw
+
+
+def _metric_outputs(sal, gt, mask, tables, device):
+    from sod100k_tpu_torch.metrics import salmetric, smeasure, wfmeasure
+
+    t = {k: torch.from_numpy(v).to(device) for k, v in
+         dict(sal=sal, gt=gt, mask=mask, **tables).items()}
+    gtf = t["gt"].float()
+    out = dict(zip(("a", "tp", "b", "n"), salmetric.threshold_counts(
+        t["sal"], gtf, t["mask"])))
+    out.update(zip(("mae", "p", "r", "e"), salmetric.per_image_stats(
+        t["sal"], gtf, t["mask"])))
+    out["af"] = salmetric.adaptive_f_per_image(t["sal"], gtf, t["mask"])
+    out["ae"] = salmetric.adaptive_e_per_image(t["sal"], gtf, t["mask"])
+    out["s"] = smeasure.s_measure_batch(t["sal"] / 255.0,
+                                        (gtf > 128).float(), t["mask"])
+    out["wf"] = wfmeasure.wf_per_image_device(
+        t["sal"] / 255.0, t["gt"], t["mask"], t["wf_idx"], t["wf_weight"])
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def test_metrics_on_the_card_match_the_cpu(cuda):
+    """Counts bit-equal (exact f32 integers, atomics in any order); the rest
+    within 1e-6 (MAE/P/R/E, adaptive F/E) or 1e-5 (S, weighted F)."""
+    from sod100k_tpu_torch.metrics.wfmeasure import precompute_wf_tables
+
+    sal, gt, mask, hw = _metric_batch()
+    tables = precompute_wf_tables(gt, hw)
+    cpu = _metric_outputs(sal, gt, mask, tables, "cpu")
+    card = _metric_outputs(sal, gt, mask, tables, cuda)
+    for k in ("a", "tp", "b", "n"):
+        assert torch.equal(card[k], cpu[k]), k
+    for k, v in cpu.items():
+        atol = 1e-5 if k in ("s", "wf") else 1e-6
+        torch.testing.assert_close(card[k], v, rtol=0, atol=atol,
+                                   equal_nan=True, msg=k)
+
+
+def test_front_end_on_the_card_matches_the_cpu(cuda):
+    from sod100k_tpu_torch.data import device_pipeline as dp
+    from sod100k_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+
+    rng = np.random.default_rng(1)
+    hw = torch.tensor([(50, 61), (64, 64), (40, 45)])
+    img = torch.from_numpy(rng.integers(0, 256, (3, 64, 64, 3), np.uint8))
+    gt = torch.from_numpy(rng.integers(0, 256, (3, 64, 64), np.uint8))
+    draws = dp.draw_augment_params(torch.Generator().manual_seed(2), 3, 15)
+    draws["do_flip"][:] = torch.tensor([True, True, False])
+    draws["flip_lr"][:] = torch.tensor([True, False, True])
+    for dev in ("cpu", cuda):
+        out = dp.preprocess_train_batch(img.to(dev), gt.to(dev), hw.to(dev),
+                                        draws=draws, out_hw=(32, 40))
+        inf = dp.preprocess_infer_batch(img.to(dev), hw.to(dev),
+                                        out_hw=(48, 48))
+        up = dp.resize_to_native_canvas(img[..., 0].float().to(dev) / 255,
+                                        hw.to(dev), (96, 128))
+        if dev == "cpu":
+            want = (out, inf, up)
+    # images on the [0, 1] scale: the card contracts the coordinate and
+    # lerp arithmetic into FMAs, and the ImageNet std (x1/0.225) would
+    # amplify those roundings
+    mean, std = (torch.from_numpy(v) for v in (IMAGENET_MEAN, IMAGENET_STD))
+    pairs = [(out["image"] * std.to(cuda) + mean.to(cuda),
+              want[0]["image"] * std + mean),
+             (out["target"], want[0]["target"]),
+             (inf * std.to(cuda) + mean.to(cuda), want[1] * std + mean),
+             (up, want[2])]
+    for g, w in pairs:
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-5)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    d = dp.draw_augment_params(gen, 64, 15)
+    assert all(v.device.type == "cuda" for v in d.values())
+    assert d["r2"].min() >= 1 and d["r1"].max() <= 14
+
+
+def test_resident_sweep_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One TESTALL sweep and one val MAE, small model in f32, the card (the
+    kernel) against the CPU (plain path). The forwards agree within 1e-4;
+    the stages after them (resize back, quantization, every metric) are
+    held at the sweep's bars on the same maps: on a fresh small model a
+    quantization level that flips between the two forwards moves a curve
+    point of a 10-image split by up to ~4e-4."""
+    from sod100k_tpu_torch.data import resident
+    from sod100k_tpu_torch.data.pipeline import SalData
+    from sod100k_tpu_torch.data.synth import make_synth_split
+    from sod100k_tpu_torch.metrics.salmetric import result_from_sums
+
+    split = make_synth_split(str(tmp_path / "split"), 10, hw=(60, 80))
+    ds = SalData(split, (64, 64), mode="val")
+    model = CSNet(LC, seed=6, device="cpu")
+    calibrate_bn(model, torch.from_numpy(np.random.default_rng(3)
+                                         .standard_normal((4, 64, 64, 3),
+                                                          dtype=np.float32)))
+    card_model = CSNet(LC, device=cuda)
+    card_model.load_state_dict(model.state_dict())
+    data = {dev: resident.build_resident_val_dataset(
+        ds, (64, 64), 4, device=dev, with_wf_tables=True)
+        for dev in ("cpu", cuda)}
+    canvas = data["cpu"].pop("_canvas_hw")
+    data[cuda].pop("_canvas_hw")
+    es = {"cpu": make_eval_step(model, from_u8=True),
+          cuda: make_eval_step(card_model, from_u8=True)}
+    maps = {dev: torch.cat([es[dev](data[dev]["image_u8"][b:b + 4])
+                            for b in range(0, 12, 4)]) for dev in es}
+    assert (maps[cuda].cpu() - maps["cpu"]).abs().max().item() < 1e-4
+
+    before = dw_chain.launches
+    es[cuda](data[cuda]["image_u8"][:4])
+    per = dw_chain.launches - before
+    card_sums = resident.make_resident_salmetric_fn(
+        es[cuda], batch_size=4, canvas_hw=canvas)(data[cuda])
+    assert per > 0 and dw_chain.launches - before == 4 * per  # 3 batches
+    card = result_from_sums(card_sums)
+    card_maps = iter(maps[cuda].cpu().split(4))
+    cpu = result_from_sums(resident.make_resident_salmetric_fn(
+        lambda img: next(card_maps), batch_size=4,
+        canvas_hw=canvas)(data["cpu"]))
+    cpu_own = result_from_sums(resident.make_resident_salmetric_fn(
+        es["cpu"], batch_size=4, canvas_hw=canvas)(data["cpu"]))
+    for want, curve in ((cpu, 2e-4), (cpu_own, None)):
+        for k in ("mae", "max_f", "adaptive_f", "adaptive_e", "s_measure"):
+            assert card[k] == pytest.approx(want[k], abs=1e-4), k
+        assert card["weighted_f"] == pytest.approx(want["weighted_f"],
+                                                   abs=5e-4)
+        if curve:
+            for k in ("precision", "recall", "emeasure"):
+                np.testing.assert_allclose(card[k], want[k], rtol=0,
+                                           atol=curve)
+    mae = {dev: resident.make_resident_val_fn(
+        es[dev], batch_size=4, canvas_hw=canvas)(data[dev]).item()
+        for dev in es}
+    assert mae[cuda] == pytest.approx(mae["cpu"], abs=1e-4)
+
+
+def test_device_prefetch_on_a_side_stream(cuda):
+    from sod100k_tpu_torch.data.pipeline import device_prefetch
+
+    rng = np.random.default_rng(4)
+    want = [{"image_u8": rng.integers(0, 256, (8, 64, 64, 3), np.uint8),
+             "hw": rng.integers(1, 64, (8, 2)).astype(np.int32),
+             "name": f"b{i}"} for i in range(5)]
+    got = list(device_prefetch(iter(want), device=cuda))
+    assert [g["name"] for g in got] == [w["name"] for w in want]
+    for g, w in zip(got, want):
+        assert g["image_u8"].device.type == "cuda"
+        np.testing.assert_array_equal(g["image_u8"].cpu().numpy(),
+                                      w["image_u8"])
+        np.testing.assert_array_equal(g["hw"].cpu().numpy(), w["hw"])
