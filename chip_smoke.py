@@ -5,7 +5,8 @@
 Drives CSNet-L (``init_layers(40, [0.5, 0.5])``, full width, 224^2, seeded
 random weights with calibrated BN statistics) through the port's serving
 entry points, with every ILBlock depthwise tail on the hand-written CUDA
-kernel (csrc/dw_chain.cu). Phases; any failure exits non-zero:
+kernel (csrc/dw_chain.cu), then its training, pruning and dataset paths,
+then CSF+Res2Net-50/101 at 336^2. Phases; any failure exits non-zero:
 
 1. build the kernel with nvcc (sm_90a) and print the card's name and
    power limit;
@@ -90,7 +91,32 @@ kernel (csrc/dw_chain.cu). Phases; any failure exits non-zero:
    256^2) is built and its bytes printed;
 9e. times (not gated): sweep img/s with and without wF, device time per
    batch split into the forward and the rest, the epoch beside phase 8b's
-   step, the PNG read rate, and whether OpenCV's C++ library is present.
+   step, the PNG read rate, and whether OpenCV's C++ library is present;
+10. CSF+Res2Net (``arch/csf_res2net.py``; plain PyTorch ops, no kernel of
+   its own: the phase counts 0 fused_dw_chain launches), seeded reference
+   init, and the 336^2 store of 10d built from the split's first 160 pairs
+   through a .lst file (``CSFTrainData``) before the split goes:
+10a. Res2Net-50 f32 card vs CPU at B=2, 336^2 and 301x401 (non-integer
+   octave resizes, ceil-mode pools), Res2Net-101 at B=1, 336^2: max
+   |dlogit| < 1e-3, sigmoid mean |d| < 1e-5, a map that is not constant;
+10b. a Res2Net-50 artifact at 336^2 (u8 wire, buckets 1 and 8) served over
+   HTTP, 8 requests of disc images from 2 client threads, as phase 4: bf16
+   (each response nearest its own direct result) and f32 (within 1 level);
+10c. one masked f32 micro-step at B=1, 224^2, card vs CPU: loss rel 1e-4,
+   gradients global L2-rel 2e-3; with iter_size 2 nothing moves on
+   micro-step 1, every trainable tensor on 2, no frozen tensor or BN
+   statistic ever;
+10d. the resident CSF epoch: B=8 bf16, Adam lr 5e-5 wd 5e-4, iter_size 2,
+   20 micro-steps: finite losses, the trainable tensors moved and the
+   frozen ones not; the trained f32 eval equals a fresh load (<= 1e-5);
+   remat gives the plain f32 step's gradients (L2-rel < 1e-5);
+10e. a 4-pair .lst split of PNGs through ``padded_batches`` (bucket 32)
+   into one masked f32 step: within rel 2e-2 of the native-size loss;
+10f. times (not gated): the B=32 bf16 eval forward at 336^2 of both
+   backbones (host clock, profiler device time by kernel, idle share), the
+   B=1 latency, the B=8 bf16 micro-step (median of 20, device time, peak
+   memory), the epoch's img/s, and the head's largest resize in NCHW
+   against channels-last.
 
 Needs torch with CUDA and nvcc; no jax, cv2, PIL or yaml. The second line from
 the end is a JSON summary of the kernels; the last line is the run's JSON
@@ -106,6 +132,7 @@ timed as in phase 5 and printed per shape and per forward; no result line.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import ctypes
 import io
 import json
@@ -120,13 +147,16 @@ import urllib.request
 import numpy as np
 import torch
 
+from sod100k_tpu_torch.arch.csf_res2net import CSFNet
 from sod100k_tpu_torch.arch.csnet import CSNet, calibrate_bn, count_params
 from sod100k_tpu_torch.arch.layer_config import init_layers
+from sod100k_tpu_torch.data.csf_dataset import CSFTrainData, padded_batches
 from sod100k_tpu_torch.data.image_io import (resize_f32_linear,
-                                             resize_u8_linear)
+                                             resize_u8_linear, write_png)
 from sod100k_tpu_torch.data.pipeline import SalData, normalize_u8
 from sod100k_tpu_torch.data.resident import (build_resident_dataset,
                                              build_resident_val_dataset,
+                                             make_resident_csf_epoch_fn,
                                              make_resident_epoch_fn,
                                              make_resident_salmetric_fn,
                                              make_resident_val_fn)
@@ -138,11 +168,15 @@ from sod100k_tpu_torch.metrics.smeasure import s_measure_batch
 from sod100k_tpu_torch.metrics.wfmeasure import (precompute_wf_tables,
                                                  weighted_f_measure,
                                                  wf_per_image_device)
-from sod100k_tpu_torch.ops import cuda_lib, dw_chain
+from sod100k_tpu_torch.ops import cuda_lib, dw_chain, resample
 from sod100k_tpu_torch.prune import build_pruned_csnet, layer_gammas, prune
 from sod100k_tpu_torch.serve import export_artifact, load_artifact
 from sod100k_tpu_torch.serve_http import make_server
 from sod100k_tpu_torch.train.checkpoint import resume, save_checkpoint
+from sod100k_tpu_torch.train.csf_step import (csf_loss,
+                                              freeze_reference_params,
+                                              make_csf_optimizer,
+                                              make_csf_train_step)
 from sod100k_tpu_torch.train.optim import (cosine_lr, make_adam, make_adam_dwd,
                                            make_sgd)
 from sod100k_tpu_torch.train.step import (make_eval_step, make_train_step,
@@ -286,16 +320,20 @@ def post_npy(url: str, arr: np.ndarray) -> np.ndarray:
         return np.load(io.BytesIO(r.read()))
 
 
-def phase_serving(model_cpu: CSNet, artifact: str, dtype: torch.dtype):
-    """Export, load on the card, serve 16 requests from 4 client threads,
-    check /stats, the launch count and every response against a direct
-    ServingModel call on the same images."""
-    export_artifact(artifact, model_cpu, batch=(1, 8, 32), hw=HW,
+def phase_serving(model_cpu, artifact: str, dtype: torch.dtype, *,
+                  hw=HW, buckets=(1, 8, 32), requests=None, clients: int = 4,
+                  calls: int = CALLS_PER_FORWARD):
+    """Export, load on the card, serve the requests (by default 16 of 1-4
+    noise images at ``hw``) from ``clients`` client threads, check /stats,
+    the launch count (``calls`` kernel launches per forward) and every
+    response against a direct ServingModel call on the same images."""
+    export_artifact(artifact, model_cpu, batch=buckets, hw=hw,
                     dtype=dtype, wire="u8")
     sm = load_artifact(artifact, device="cuda")
-    rng = np.random.default_rng(2)
-    requests = [rng.integers(0, 256, (int(rng.integers(1, 5)), *HW, 3),
-                             np.uint8) for _ in range(16)]
+    if requests is None:
+        rng = np.random.default_rng(2)
+        requests = [rng.integers(0, 256, (int(rng.integers(1, 5)), *hw, 3),
+                                 np.uint8) for _ in range(16)]
     responses: list = [None] * len(requests)
     errors: list = []
 
@@ -307,18 +345,19 @@ def phase_serving(model_cpu: CSNet, artifact: str, dtype: torch.dtype):
 
     def client(k: int) -> None:
         try:
-            for i in range(k, len(requests), 4):
+            for i in range(k, len(requests), clients):
                 responses[i] = post_npy(url, requests[i])
         except Exception as e:  # reported below, after every thread joined
             errors.append(e)
 
     try:
-        clients = [threading.Thread(target=client, args=(k,)) for k in range(4)]
-        for t in clients:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(clients)]
+        for t in threads:
             t.start()
-        for t in clients:
+        for t in threads:
             t.join(timeout=600)
-        check(not any(t.is_alive() for t in clients), "clients finished")
+        check(not any(t.is_alive() for t in threads), "clients finished")
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
         torch.cuda.synchronize()
@@ -343,14 +382,14 @@ def phase_serving(model_cpu: CSNet, artifact: str, dtype: torch.dtype):
           "/stats batch histogram adds up")
     forwards = len(sm.batches) + stats["dispatches"]  # warm-up + one each
     say(f"  launches over the served phase: {served_launches} "
-        f"(want {CALLS_PER_FORWARD} x {forwards})")
-    check(served_launches == CALLS_PER_FORWARD * forwards,
+        f"(want {calls} x {forwards})")
+    check(served_launches == calls * forwards,
           "launches over the served phase")
 
     directs = [sm(req) for req in requests]
     worst_share, worst_max = 0.0, 0
     for i, (resp, direct) in enumerate(zip(responses, directs)):
-        check(resp.shape == direct.shape == (len(requests[i]), *HW, 1)
+        check(resp.shape == direct.shape == (len(requests[i]), *hw, 1)
               and resp.dtype == np.uint8, "response shape and dtype")
         diff = np.abs(resp.astype(np.int32) - direct.astype(np.int32))
         worst_share = max(worst_share, float((diff > 0).mean()))
@@ -1355,6 +1394,375 @@ def phase_dataset_times(model: CSNet, sweep: dict, epoch: dict,
         f"native SalMetric later): {found}")
 
 
+# ---------------------------------------------------------------------------
+# CSF+Res2Net on the card (phase 10)
+
+CSF_HW = (336, 336)       # the README's CSF configurations
+CSF_ODD_HW = (301, 401)   # non-integer octave resizes, ceil-mode pools
+CSF_TRAIN_HW = (224, 224)
+CSF_STORE_PAIRS = 160     # 20 micro-steps at B=8
+CSF_BATCH = 8
+CSF_ITER = 2
+CSF_LR, CSF_WD = 5e-5, 5e-4   # the reference Solver's recipe
+CSF_LST_SIZES = [(300, 400), (295, 390), (290, 385), (310, 410)]
+
+
+def disc_images(rng, n: int, hw) -> np.ndarray:
+    """``n`` uint8 images at ``hw``: a disc of one colour at a random place
+    on noise, so that saliency maps differ from image to image."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    for i in range(n):
+        cy, cx = int(rng.integers(h // 4, 3 * h // 4)), \
+            int(rng.integers(w // 4, 3 * w // 4))
+        r = int(rng.integers(min(h, w) // 8, min(h, w) // 3))
+        img[i][(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rng.integers(
+            0, 256, 3)
+    return img
+
+
+def csf_logits(model: CSFNet, x: torch.Tensor) -> torch.Tensor:
+    model.eval()
+    with torch.no_grad():
+        return model(x).float()
+
+
+def csf_on(model: CSFNet, device: str) -> CSFNet:
+    return copy.deepcopy(model).to(device)
+
+
+def phase_csf_forward() -> CSFNet:
+    """10a: Res2Net-50 at B=2, 336^2 and 301x401, and Res2Net-101 at B=1,
+    336^2, f32, the seeded reference init: card against the CPU. Returns
+    the Res2Net-50 model (CPU)."""
+    rng = np.random.default_rng(20)
+    r50 = None
+    for backbone, n, shapes in (("res2net50", 2, (CSF_HW, CSF_ODD_HW)),
+                                ("res2net101", 1, (CSF_HW,))):
+        cpu = CSFNet(backbone, seed=0, device="cpu")
+        card = csf_on(cpu, "cuda")
+        for hw in shapes:
+            x = normalize_u8(torch.from_numpy(disc_images(rng, n, hw)))
+            t0 = time.perf_counter()
+            want = csf_logits(cpu, x)
+            t_cpu = time.perf_counter() - t0
+            got = csf_logits(card, x.cuda()).cpu()
+            d_logit = (got - want).abs().max().item()
+            d_sig = (torch.sigmoid(got) - torch.sigmoid(want)).abs().mean()
+            std = torch.sigmoid(got).std().item()
+            say(f"  {backbone} f32 card vs CPU, {n}x{hw[0]}x{hw[1]}: max "
+                f"|dlogit| {d_logit:.3e} (< 1e-3), sigmoid mean |d| "
+                f"{d_sig.item():.3e} (< 1e-5), sigmoid std {std:.4f}, logit "
+                f"range [{want.min().item():.3f}, {want.max().item():.3f}]; "
+                f"the CPU forward {t_cpu:.1f} s")
+            check(got.shape == (n, *hw, 1) and bool(torch.isfinite(got).all()),
+                  f"{backbone} output at {hw}")
+            check(d_logit < 1e-3 and d_sig.item() < 1e-5,
+                  f"{backbone} card vs CPU at {hw}")
+            check(std > 1e-3, f"{backbone} map at {hw} is not constant")
+        if backbone == "res2net50":
+            r50 = cpu
+        del card
+    return r50
+
+
+def phase_csf_serving(model_cpu: CSFNet) -> None:
+    """10b: a Res2Net-50 artifact at 336^2, bf16 then f32 compute, u8 wire,
+    buckets (1, 8), served over HTTP: 8 requests from 2 client threads."""
+    rng = np.random.default_rng(21)
+    requests = [disc_images(rng, int(rng.integers(1, 5)), CSF_HW)
+                for _ in range(8)]
+    for dtype in (torch.bfloat16, torch.float32):
+        say(f"  {str(dtype)[6:]} compute")
+        with tempfile.TemporaryDirectory() as artifact:
+            sm, _ = phase_serving(model_cpu, artifact, dtype, hw=CSF_HW,
+                                  buckets=(1, 8), requests=requests,
+                                  clients=2, calls=0)
+            check(sm.meta["family"] == "csf"
+                  and sm.model.backbone == "res2net50", "a CSF artifact")
+        del sm
+
+
+def trainable_state(model: CSFNet) -> tuple[dict, dict]:
+    """Copies of the trainable parameters and of everything else in the
+    state_dict (frozen parameters, BN statistics)."""
+    train = {n for n, p in model.named_parameters() if p.requires_grad}
+    sd = model.state_dict()
+    return ({k: v.clone() for k, v in sd.items() if k in train},
+            {k: v.clone() for k, v in sd.items() if k not in train})
+
+
+def phase_csf_train_f32(model_cpu: CSFNet) -> None:
+    """10c: one masked f32 micro-step at B=1, 224^2, card against CPU; then
+    iter_size 2 on the card: nothing moves on micro-step 1, the trainable
+    tensors move on 2, the frozen ones and the BN statistics do not."""
+    rng = np.random.default_rng(22)
+    img = disc_images(rng, 1, CSF_TRAIN_HW)
+    mask = np.zeros((1, *CSF_TRAIN_HW, 1), np.float32)
+    mask[:, :180, :200] = 1.0  # a padded sample's real pixels
+    batch = {"image": torch.from_numpy(img),
+             "target": torch.from_numpy(((img[..., :1] > 127) * 255)
+                                        .astype(np.uint8)),
+             "mask": torch.from_numpy(mask)}
+    out, models, steps = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        model = csf_on(model_cpu, dev)
+        freeze_reference_params(model)
+        step = make_csf_train_step(model, make_csf_optimizer(model, CSF_WD),
+                                   iter_size=2, batch_size=1, from_u8=True)
+        t0 = time.perf_counter()
+        out[dev] = step(batch, CSF_LR)["loss"].item()
+        say(f"  {dev}: loss {out[dev]:.7f}, micro-step "
+            f"{time.perf_counter() - t0:.1f} s")
+        models[dev], steps[dev] = model, step
+    rel = abs(out["cuda"] - out["cpu"]) / abs(out["cpu"])
+    grads = {dev: {n: p.grad.double() for n, p in m.named_parameters()
+                   if p.requires_grad} for dev, m in models.items()}
+    errs, g_all = tensors_close(grads["cpu"], grads["cuda"])
+    say(f"  f32 card vs CPU: loss rel {rel:.2e} (< 1e-4), gradients L2-rel "
+        f"global {g_all:.2e} (< 2e-3), worst tensor {max(errs):.2e} over "
+        f"{len(errs)} trainable tensors")
+    check(rel < 1e-4, "CSF loss, card vs CPU")
+    check(g_all < 2e-3, "CSF gradients, card vs CPU")
+
+    model, step = models["cuda"], steps["cuda"]
+    train0, frozen0 = trainable_state(model)
+    sd = model.state_dict()
+    still = all(torch.equal(sd[k], v) for k, v in {**train0, **frozen0}.items())
+    step(batch, CSF_LR)
+    train1, frozen1 = trainable_state(model)
+    moved = sum(not torch.equal(v, train0[k]) for k, v in train1.items())
+    kept = all(torch.equal(v, frozen0[k]) for k, v in frozen1.items())
+    say(f"  iter_size 2: micro-step 1 left every tensor as it was: {still}; "
+        f"micro-step 2 moved {moved} of {len(train1)} trainable tensors; the "
+        f"{len(frozen1)} frozen tensors and BN statistics bit-unchanged: "
+        f"{kept}")
+    check(still and moved == len(train1) and kept,
+          "accumulation: apply on micro-step 2 only, frozen tensors kept")
+
+
+def csf_store(split_dir: str) -> dict:
+    """The resident 336^2 store of the split's first CSF_STORE_PAIRS pairs,
+    read through a .lst file and ``CSFTrainData``."""
+    names = sorted(os.listdir(os.path.join(split_dir, "images")))
+    lst = os.path.join(split_dir, "csf_train.lst")
+    with open(lst, "w") as f:
+        f.writelines(f"images/{n} GT/{n}\n" for n in names[:CSF_STORE_PAIRS])
+    t0 = time.perf_counter()
+    store = build_resident_dataset(CSFTrainData(split_dir, lst), CSF_HW)
+    torch.cuda.synchronize()
+    say(f"  CSF store {tuple(store['image_u8'].shape)}: "
+        f"{nbytes(store) / 1e6:.1f} MB on the card, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return store
+
+
+def phase_csf_epoch(model_cpu: CSFNet, store: dict, gpu: str) -> dict:
+    """10d: the resident CSF epoch (B=8 bf16, the recipe's Adam, iter_size
+    2, 20 micro-steps) over the 336^2 store; then the trained model's f32
+    eval against a fresh load, and remat against the plain f32 step."""
+    model = csf_on(model_cpu, "cuda")
+    freeze_reference_params(model)
+    train0, frozen0 = trainable_state(model)
+    step = make_csf_train_step(model, make_csf_optimizer(model, CSF_WD),
+                               iter_size=CSF_ITER, batch_size=CSF_BATCH,
+                               compute_dtype=torch.bfloat16)
+    epoch = make_resident_csf_epoch_fn(step, batch_size=CSF_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = epoch(store, gen, CSF_LR)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if len(times) == 1:
+            checked = losses.cpu().numpy()
+            train1, frozen1 = trainable_state(model)
+    nb = len(checked)
+    say(f"  epoch 1: {nb} micro-steps ({nb * CSF_BATCH} images) in "
+        f"{times[0]:.2f} s (warm-up included); loss "
+        f"{' '.join(f'{v:.4f}' for v in checked)}")
+    moved = sum(not torch.equal(v, train0[k]) for k, v in train1.items())
+    kept = all(torch.equal(v, frozen0[k]) for k, v in frozen1.items())
+    say(f"  {moved} of {len(train1)} trainable tensors moved; frozen "
+        f"tensors and BN statistics bit-unchanged: {kept}")
+    check(nb == CSF_STORE_PAIRS // CSF_BATCH and np.isfinite(checked).all(),
+          "finite CSF epoch losses")
+    check(moved == len(train1) and kept, "the epoch trains what it should")
+    img_s = nb * CSF_BATCH / times[1]
+    say(f"  epoch 2: {img_s:.1f} img/s, {times[1] / nb * 1e3:.2f} ms per "
+        f"micro-step  [{gpu}]")
+
+    x = normalize_u8(store["image_u8"][:2])
+    fresh = CSFNet(model.backbone, device="cuda")
+    fresh.load_state_dict(model.state_dict(), strict=True)
+    d_fresh = (csf_logits(model, x) - csf_logits(fresh, x)).abs().max().item()
+    say(f"  trained f32 eval vs a fresh load: max |dlogit| {d_fresh:.2e} "
+        f"(<= 1e-5)")
+    check(d_fresh <= 1e-5, "trained eval equals a fresh load")
+    del fresh
+
+    batch = {"image": x, "target": store["gt_u8"][:2, ..., None].float()
+             / 255.0}
+    grads = []
+    for remat in (False, True):
+        m = csf_on(model, "cuda")
+        freeze_reference_params(m)
+        make_csf_train_step(m, make_csf_optimizer(m, CSF_WD), iter_size=2,
+                            batch_size=2, remat=remat)(batch, CSF_LR)
+        grads.append({n: p.grad.double() for n, p in m.named_parameters()
+                      if p.requires_grad})
+        del m
+    _, g_remat = tensors_close(*grads)
+    say(f"  remat vs plain f32 step (B=2, 336^2): gradients L2-rel "
+        f"{g_remat:.2e} (< 1e-5)")
+    check(g_remat < 1e-5, "remat gives the plain step's gradients")
+    return {"img_s": img_s, "ms": times[1] / nb * 1e3}
+
+
+def phase_csf_lst(model_cpu: CSFNet) -> None:
+    """10e: a 4-pair .lst split (PNG) through CSFTrainData and
+    padded_batches (bucket 32) into one masked f32 step on the card,
+    against the native-size loss of the same samples (rel 2e-2: the loss
+    pixels are the same, convolutions near the padding see zeros)."""
+    rng = np.random.default_rng(23)
+    with tempfile.TemporaryDirectory() as root:
+        for d in ("img", "gt"):
+            os.makedirs(os.path.join(root, d))
+        lines = []
+        for i, hw in enumerate(CSF_LST_SIZES):
+            img = disc_images(rng, 1, hw)[0]
+            write_png(os.path.join(root, "img", f"{i}.png"), img)
+            write_png(os.path.join(root, "gt", f"{i}.png"),
+                      ((img[..., 0] > 127) * 255).astype(np.uint8))
+            lines.append(f"img/{i}.png gt/{i}.png\n")
+        with open(os.path.join(root, "train.lst"), "w") as f:
+            f.writelines(lines)
+        ds = CSFTrainData(root, os.path.join(root, "train.lst"), seed=0)
+        batches = list(padded_batches(ds, len(CSF_LST_SIZES), bucket=32,
+                                      shuffle=False))
+    check(len(batches) == 1, "one bucket")
+    b = batches[0]
+    model = csf_on(model_cpu, "cuda")
+    freeze_reference_params(model)
+    n = len(CSF_LST_SIZES)
+    padded = make_csf_train_step(model, make_csf_optimizer(model, CSF_WD),
+                                 iter_size=1, batch_size=n)(b, 0.0)
+    padded = padded["loss"].item()
+    native = 0.0
+    for i in range(n):
+        rows = b["mask"][i, :, 0, 0] > 0
+        cols = b["mask"][i, 0, :, 0] > 0
+        h, w = int(rows.sum()), int(cols.sum())
+        x = torch.from_numpy(b["image"][i:i + 1, :h, :w].copy()).cuda()
+        t = torch.from_numpy(b["target"][i:i + 1, :h, :w].copy()).cuda()
+        native += csf_loss(csf_logits(model, x), t, None, 1, n).item()
+    rel = abs(padded - native) / abs(native)
+    say(f"  {n} pairs {CSF_LST_SIZES} in one {tuple(b['image'].shape[1:3])} "
+        f"bucket: masked loss {padded:.6f}, native-size loss {native:.6f}, "
+        f"rel {rel:.2e} (<= 2e-2)")
+    check(np.isfinite(padded) and rel <= 2e-2, "masked loss vs native")
+
+
+def time_forward(model: CSFNet, n: int, reps: int) -> tuple:
+    """The bf16 eval forward at 336^2 on u8 input: host ms per forward over
+    ``reps`` synchronized calls, the profiler's kernels and device ms."""
+    images = torch.from_numpy(disc_images(np.random.default_rng(24), n,
+                                          CSF_HW)).cuda()
+    evaluate = make_eval_step(model, from_u8=True,
+                              compute_dtype=torch.bfloat16)
+    for _ in range(3):
+        evaluate(images)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        evaluate(images)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    kernels, dev = profile_kernels(lambda: evaluate(images), 5)
+    return float(np.median(ms)), float(np.mean(ms)), kernels, dev
+
+
+def say_kernels(kernels, dev: float, reps: int, top: int, unit: str) -> None:
+    for e in kernels[:top]:
+        t = e.self_device_time_total / reps / 1e3
+        say(f"    {t:8.4f} ms {t / dev:6.1%} {e.count / reps:6.1f}/{unit}  "
+            f"{e.key[:110]}")
+
+
+def phase_csf_times(model_cpu: CSFNet, epoch: dict, gpu: str) -> None:
+    """10f (not gated): the B=32 bf16 eval forward at 336^2 of both
+    backbones, the B=1 latency, the B=8 bf16 micro-step, the epoch."""
+    for backbone in ("res2net50", "res2net101"):
+        model = (csf_on(model_cpu, "cuda") if backbone == "res2net50"
+                 else CSFNet(backbone, seed=0, device="cuda"))
+        med, mean, kernels, dev = time_forward(model, 32, 20)
+        say(f"  {backbone} eval forward B=32 bf16 336^2, u8 on the card: "
+            f"{med:.3f} ms median, {mean:.3f} ms mean of 20 (host clock, "
+            f"synchronized), {32 / mean * 1e3:.1f} img/s; device "
+            f"{dev:.3f} ms ({1 - dev / mean:.1%} idle)  [{gpu}]")
+        say_kernels(kernels, dev, 5, 12, "fwd")
+        if backbone == "res2net50":
+            med1, mean1, _, dev1 = time_forward(model, 1, 50)
+            say(f"  res2net50 B=1 bf16 336^2 latency: {med1:.3f} ms median, "
+                f"{mean1:.3f} ms mean of 50 (host clock, synchronized); "
+                f"device {dev1:.3f} ms ({1 - dev1 / mean1:.1%} idle)  [{gpu}]")
+        del model
+
+    model = csf_on(model_cpu, "cuda")
+    freeze_reference_params(model)
+    step = make_csf_train_step(model, make_csf_optimizer(model, CSF_WD),
+                               iter_size=CSF_ITER, batch_size=CSF_BATCH,
+                               compute_dtype=torch.bfloat16, from_u8=True)
+    rng = np.random.default_rng(25)
+    img = disc_images(rng, CSF_BATCH, CSF_HW)
+    batch = {"image": torch.from_numpy(img).cuda(),
+             "target": torch.from_numpy(((img[..., :1] > 127) * 255)
+                                        .astype(np.uint8)).cuda()}
+    for _ in range(4):
+        step(batch, CSF_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        step(batch, CSF_LR)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    kernels, dev = profile_kernels(lambda: step(batch, CSF_LR), 4)
+    med = float(np.median(ms))
+    say(f"  res2net50 micro-step B={CSF_BATCH} bf16 336^2, u8 wire, "
+        f"iter_size {CSF_ITER} (every other one applies Adam): {med:.3f} ms "
+        f"median of 20 (host clock, synchronized), "
+        f"{CSF_BATCH / med * 1e3:.1f} img/s; device {dev:.3f} ms per "
+        f"micro-step ({1 - dev / med:.1%} idle); peak memory "
+        f"{peak / 2 ** 30:.3f} GiB  [{gpu}]")
+    say_kernels(kernels, dev, 4, 12, "step")
+    say(f"  resident CSF epoch: {epoch['img_s']:.1f} img/s, "
+        f"{epoch['ms']:.2f} ms per micro-step  [{gpu}]")
+    del model, step
+
+    # the head's largest resize (fuse1x1's branch 1 -> 84^2 at B=32): the
+    # NCHW path the port takes against the channels-last one, a yardstick
+    # for later work (not used by the port)
+    x = torch.randn(32, 1408, 42, 42, device="cuda", dtype=torch.bfloat16)
+    xl = x.contiguous(memory_format=torch.channels_last)
+    nchw = cuda_ms(lambda: resample.resize_bilinear(x, (84, 84)), 10)
+    nhwc = cuda_ms(lambda: resample.resize_bilinear(xl, (84, 84)), 10)
+    both = cuda_ms(lambda: resample.resize_bilinear(
+        x.contiguous(memory_format=torch.channels_last), (84, 84))
+        .contiguous(), 10)
+    d = (resample.resize_bilinear(x, (84, 84)).float()
+         - resample.resize_bilinear(xl, (84, 84)).float()).abs().max().item()
+    say(f"  resize (32, 1408, 42, 42) -> 84^2 bf16: NCHW {nchw:.3f} ms, "
+        f"channels-last {nhwc:.3f} ms, with both layout changes "
+        f"{both:.3f} ms (CUDA events, 10 calls); max |d| {d:.1e}  [{gpu}]")
+
+
 # --variants: A/B of the kernel's plan sizes (module constants of
 # ops/dw_chain.py, for every shape or by H) and diagnostic builds of the
 # source that compute the wrong thing on purpose, to show which part bounds
@@ -1540,7 +1948,35 @@ def main() -> None:
         say("9e: times (not gated)")
         phase_dataset_times(sweep_model, sweep, epoch, train_step, split,
                             gpu)
-    say(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+        say(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+        say(f"phase 10: CSF+Res2Net (the store of 10d: the split's first "
+            f"{CSF_STORE_PAIRS} pairs through a .lst file)")
+        store = csf_store(split_dir)
+    sweep_launches = sweep["launches_per_forward"]
+    del sweep, sweep_model, trained, slim, epoch
+
+    t10 = time.perf_counter()
+    dw_chain.launches = 0
+    say("10a: Res2Net-50 and -101, f32, card vs CPU")
+    r50 = phase_csf_forward()
+    say("10b: serving a Res2Net-50 artifact at 336^2")
+    phase_csf_serving(r50)
+    say("10c: the train step, f32, card vs CPU")
+    phase_csf_train_f32(r50)
+    say(f"10d: the resident CSF epoch (B={CSF_BATCH} bf16, Adam lr "
+        f"{CSF_LR:g} wd {CSF_WD:g}, iter_size {CSF_ITER})")
+    csf_epoch = phase_csf_epoch(r50, store, gpu)
+    del store
+    say("10e: a .lst split through padded_batches into a masked step")
+    phase_csf_lst(r50)
+    say("10f: times (not gated)")
+    phase_csf_times(r50, csf_epoch, gpu)
+    torch.cuda.synchronize()
+    csf_launches = dw_chain.launches
+    say(f"  phase 10 took {time.perf_counter() - t10:.1f} s; "
+        f"{csf_launches} fused_dw_chain launches (CSF runs no TPU kernel's "
+        f"port)")
+    check(csf_launches == 0, "the CSF path launches no depthwise-tail kernel")
 
     print(json.dumps({"kernels": [{
         "name": "fused_dw_chain", "route": "cuda",
@@ -1555,8 +1991,8 @@ def main() -> None:
         "library_ms": tot["library"], "device_ms": tot["device"],
         "ms_by": by["device"], "library_ms_by": by["library"],
         "host_us": tot["host"], "train_eval_launches": train_launches,
-        "sweep_launches": sweep["launches_per_forward"],
-        "slim_launches": slim_launches}]}))
+        "sweep_launches": sweep_launches,
+        "slim_launches": slim_launches, "csf_launches": csf_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,217 @@
+"""CSF+Res2Net as an ``nn.Module`` (NCHW inside, NHWC at the edges).
+
+Port of ``sod100k_tpu/arch/csf_res2net.py:35-241,296-310``:
+
+- Res2Net v1b: a 3-conv stem (stride 2) + BN/ReLU + 3x3/2 max pool, four
+  stages of Bottle2neck blocks (base width 26, scale 4): a 4-way channel
+  split with cascaded 3x3 convs and a running sum, avg-pool downsample
+  shortcuts. The backbone's batch norms always normalize with their
+  running statistics, in training too (the reference trains under
+  ``net.eval()``): ``CSFNet.train()`` changes nothing in the forward, and
+  gradients still reach the BN affines that the reference trains.
+- The CSF head: a 4-octave gOctConv fuse ([256, 512, 1024, 2048] ->
+  [128, 256, 512, 512]) in the CSF resampling dialect with GroupNorm(32),
+  a PallMSBlock of plain convs with width//5 dilation splits, a gOctConv
+  1x1 fuse to one 1408-channel branch, the classifier and a bilinear
+  resize to the input size.
+
+Module names reproduce the reference's state_dict keys
+(``base.conv1.0.weight``, ``base.layer3.5.convs.2.weight``,
+``base.layer2.0.downsample.1.weight``, ``fuse.conv.weights``,
+``ms.convs.0.msconv.3.weight``, ``cls_layer.bias``), so the JAX package's
+parameters (through ``interop.torch_ckpt``) and reference checkpoints load
+with ``strict=True``. res2net50 and res2net101 differ only in the stage
+depths. The model builds on the card unless the caller names another
+device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..interop.torch_ckpt import load_checkpoint
+from ..ops.conv import ConvWeight, conv2d
+from ..ops.goct import GOctCBR, PallMSBlock, _bn
+from ..ops.norm import batchnorm_infer
+from ..ops.resample import avg_pool_torch, max_pool_torch, resize_bilinear
+from .csnet import count_params  # noqa: F401  (one count for both families)
+
+LAYERS = {"res2net50": (3, 4, 6, 3), "res2net101": (3, 4, 23, 3)}
+BASE_WIDTH = 26
+SCALE = 4
+EXPANSION = 4
+PLANES = (64, 128, 256, 512)
+
+FUSE_IN = (256, 512, 1024, 2048)
+FUSE_OUT = (128, 256, 512, 512)
+CONV_STD = 0.01  # the reference Solver's init of every nn.Conv2d
+
+
+def _dil_split(width: int) -> tuple[int, ...]:
+    each = width // 5
+    return (each,) * 4 + (width - 4 * each,)
+
+
+MS_DIL_SPLITS = tuple(_dil_split(w) for w in FUSE_OUT)
+
+
+def _width(planes: int) -> int:
+    return int(math.floor(planes * (BASE_WIDTH / 64.0)))
+
+
+def _bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    return F.relu(batchnorm_infer(x, bn))
+
+
+class Bottle2neck(nn.Module):
+    """Res2Net v1b bottleneck. ``stage`` blocks (the first of each layer)
+    convolve every split chunk from its own input, pool the passthrough
+    chunk and carry the avg-pool + 1x1 conv + BN shortcut (``downsample``,
+    indices 1 and 2 as in the reference's Sequential)."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int, stage: bool,
+                 *, device=None):
+        super().__init__()
+        w = _width(planes)
+        self.width, self.stride, self.stage = w, stride, stage
+        self.conv1 = ConvWeight(w * SCALE, inplanes, 1, device=device)
+        self.bn1 = _bn(w * SCALE, device)
+        self.convs = nn.ModuleList(ConvWeight(w, w, 3, device=device)
+                                   for _ in range(SCALE - 1))
+        self.bns = nn.ModuleList(_bn(w, device) for _ in range(SCALE - 1))
+        self.conv3 = ConvWeight(planes * EXPANSION, w * SCALE, 1,
+                                device=device)
+        self.bn3 = _bn(planes * EXPANSION, device)
+        if stage:
+            self.downsample = nn.ModuleDict({
+                "1": ConvWeight(planes * EXPANSION, inplanes, 1,
+                                device=device),
+                "2": _bn(planes * EXPANSION, device)})
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = _bn_relu(conv2d(x, self.conv1.weight), self.bn1)
+        spx = torch.split(out, self.width, dim=1)
+        cat = []
+        sp = None
+        for i in range(SCALE - 1):
+            sp = spx[i] if i == 0 or self.stage else sp + spx[i]
+            sp = conv2d(sp, self.convs[i].weight, stride=self.stride,
+                        padding=1)
+            sp = _bn_relu(sp, self.bns[i])
+            cat.append(sp)
+        cat.append(avg_pool_torch(spx[-1], 3, self.stride, 1)
+                   if self.stage else spx[-1])
+        out = batchnorm_infer(conv2d(torch.cat(cat, dim=1),
+                                     self.conv3.weight), self.bn3)
+        if self.stage:
+            r = x
+            if self.stride > 1:
+                r = avg_pool_torch(x, self.stride, self.stride, 0,
+                                   ceil_mode=True, count_include_pad=False)
+            r = batchnorm_infer(conv2d(r, self.downsample["1"].weight),
+                                self.downsample["2"])
+        else:
+            r = x
+        return F.relu(out + r)
+
+
+class Res2Net(nn.Module):
+    """The Res2Net v1b backbone: the stem and ``layer1``..``layer4``."""
+
+    def __init__(self, backbone: str, *, device=None):
+        super().__init__()
+        self.conv1 = nn.ModuleDict({
+            "0": ConvWeight(32, 3, 3, device=device),
+            "1": _bn(32, device),
+            "3": ConvWeight(32, 32, 3, device=device),
+            "4": _bn(32, device),
+            "6": ConvWeight(64, 32, 3, device=device)})
+        self.bn1 = _bn(64, device)
+        inplanes = 64
+        for li, (planes, blocks) in enumerate(zip(PLANES,
+                                                  LAYERS[backbone])):
+            layer = nn.ModuleList()
+            for b in range(blocks):
+                layer.append(Bottle2neck(inplanes, planes,
+                                         1 if li == 0 or b else 2, b == 0,
+                                         device=device))
+                inplanes = planes * EXPANSION
+            self.add_module(f"layer{li + 1}", layer)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """NCHW image batch -> the four layers' features."""
+        s = self.conv1
+        x = _bn_relu(conv2d(x, s["0"].weight, stride=2, padding=1), s["1"])
+        x = _bn_relu(conv2d(x, s["3"].weight, padding=1), s["4"])
+        x = _bn_relu(conv2d(x, s["6"].weight, padding=1), self.bn1)
+        x = max_pool_torch(x, 3, 2, 1)
+        feats = []
+        for li in range(len(PLANES)):
+            for block in getattr(self, f"layer{li + 1}"):
+                x = block(x)
+            feats.append(x)
+        return feats
+
+
+class CSFNet(nn.Module):
+    """CSF head on a Res2Net backbone (``"res2net50"`` or ``"res2net101"``),
+    initialized from a ``torch.Generator`` seeded with ``seed`` with the
+    JAX package's distributions: every plain conv N(0, 0.01), the gOctConv
+    dense weights U(+-sqrt(1/cin)), BN weight 1, bias 0, running mean 0,
+    var 1; GN 1/0; PReLU 0.25; classifier bias 0."""
+
+    def __init__(self, backbone: str = "res2net50", *, seed: int = 0,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        if backbone not in LAYERS:
+            raise ValueError(f"unknown backbone {backbone!r}; one of "
+                             f"{sorted(LAYERS)}")
+        self.backbone = backbone
+        self.base = Res2Net(backbone, device=device)
+        self.fuse = GOctCBR(FUSE_IN, FUSE_OUT, 1, flavor="csf", norm="gn",
+                            device=device)
+        self.ms = PallMSBlock(FUSE_OUT, MS_DIL_SPLITS, norm="gn", x100=False,
+                              device=device)
+        self.fuse1x1 = GOctCBR(FUSE_OUT, (sum(FUSE_OUT),), 1, flavor="csf",
+                               norm="gn", device=device)
+        self.cls_layer = ConvWeight(1, sum(FUSE_OUT), 1, bias=True,
+                                    device=device)
+        gen = torch.Generator().manual_seed(seed)
+        goct = {self.fuse.conv, self.fuse1x1.conv}
+        with torch.no_grad():
+            for m in self.modules():
+                if not isinstance(m, ConvWeight):
+                    continue
+                w = m.weight
+                if m in goct:
+                    bound = math.sqrt(1.0 / w.shape[1])
+                    r = torch.rand(w.shape, generator=gen)
+                    w.copy_((r * 2.0 - 1.0) * bound)
+                else:
+                    w.copy_(torch.randn(w.shape, generator=gen) * CONV_STD)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC image batch -> NHWC saliency logits at the input size."""
+        feats = self.base(x.permute(0, 3, 1, 2).contiguous())
+        y = self.fuse1x1(self.ms(self.fuse(feats)))
+        logits = conv2d(y[0], self.cls_layer.weight, self.cls_layer.bias)
+        return resize_bilinear(logits, x.shape[1:3]).permute(0, 2, 3, 1)
+
+
+def load_res2net_backbone(model: CSFNet, torch_path: str):
+    """Overlay an ImageNet res2net50/101_v1b checkpoint (top-level
+    ``conv1.*``, ``bn1.*``, ``layer*`` keys) onto ``model.base``: ``fc.*``
+    is dropped and anything the file lacks keeps its value (the reference's
+    ``strict=False`` load). Returns ``load_state_dict``'s missing and
+    unexpected keys. The file is unpickled fully: load only files you
+    trust."""
+    device = next(model.parameters()).device
+    state, _ = load_checkpoint(torch_path, map_location=device)
+    base = {k: v for k, v in state.items() if not k.startswith("fc.")}
+    return model.base.load_state_dict(base, strict=False)

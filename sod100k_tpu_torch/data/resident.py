@@ -1,7 +1,7 @@
 """Device-resident datasets: upload once, then train, validate and score
 without moving pixels across the host link.
 
-Port of ``sod100k_tpu/data/resident.py:37-113,165-372``:
+Port of ``sod100k_tpu/data/resident.py:37-372``:
 
 1. ``build_resident_dataset``: decode on the host (once), resize uint8 to
    a store size (cv2's INTER_LINEAR, bit for bit), upload in one copy.
@@ -10,6 +10,8 @@ Port of ``sod100k_tpu/data/resident.py:37-113,165-372``:
    crop/flip/resize/normalize augmentation (``device_pipeline``) and the
    port's train step. A Python loop over batches that never waits for the
    card: losses and penalties come back as device tensors.
+   ``make_resident_csf_epoch_fn`` is the CSF dialect: per-sample
+   horizontal flips only, no crop.
 3. ``build_resident_val_dataset``: model inputs at the test size (uint8)
    plus native-resolution GTs on one canvas (and, optionally, the
    weighted-F tables), for per-epoch validation and the TESTALL sweep.
@@ -97,6 +99,50 @@ def make_resident_epoch_fn(step_fn, *, batch_size: int, out_hw,
             losses.append(m["loss"])
             pens.append(m["penalty"])
         return torch.stack(losses), torch.stack(pens)
+
+    return epoch_fn
+
+
+def make_resident_csf_epoch_fn(step_fn, *, batch_size: int):
+    """An epoch of the CSF recipe over a resident store: shuffle -> per
+    batch (gather -> per-sample horizontal flip at p=0.5 -> ImageNet
+    normalization of the u8 image and target / 255 on the device ->
+    ``step_fn``). No crop and no resize (the reference's dataset.py).
+
+    ``step_fn`` is a ``train.csf_step.CSFTrainStep`` built without
+    ``from_u8``: ``step(batch, lr) -> {"loss"}``; the model's BN statistics
+    are frozen, so nothing but its parameters moves.
+
+    Returns ``epoch_fn(data, generator, lr, draws=None) -> losses (nb,)``,
+    a device tensor. The permutation, then the (nb, batch_size) flips, come
+    from ``generator`` (on the store's device), unless ``draws`` gives them:
+    ``(perm (nb, batch_size) int64, flips (nb, batch_size) bool)``.
+    """
+    from .pipeline import normalize_u8
+
+    def epoch_fn(data: dict, generator: torch.Generator, lr: float,
+                 draws=None) -> torch.Tensor:
+        store, gts = data["image_u8"], data["gt_u8"]
+        n = store.shape[0]
+        nb = n // batch_size
+        if draws is None:
+            perm = torch.randperm(n, generator=generator,
+                                  device=store.device)
+            perm = perm[:nb * batch_size].reshape(nb, batch_size)
+            flips = torch.rand((nb, batch_size), generator=generator,
+                               device=store.device) < 0.5
+        else:
+            perm, flips = (torch.as_tensor(d, device=store.device)
+                           for d in draws)
+        losses = []
+        for idxs, fl in zip(perm, flips):
+            img, gt = store[idxs], gts[idxs]
+            img = torch.where(fl[:, None, None, None], img.flip(2), img)
+            gt = torch.where(fl[:, None, None], gt.flip(2), gt)
+            batch = {"image": normalize_u8(img),
+                     "target": gt.float()[..., None] / 255.0}
+            losses.append(step_fn(batch, lr)["loss"])
+        return torch.stack(losses)
 
     return epoch_fn
 

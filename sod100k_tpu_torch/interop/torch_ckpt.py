@@ -5,15 +5,17 @@ module names, with HWIO conv kernels and renamed leaves
 (``sod100k_tpu/interop/torch_ckpt.py``). ``state_dict_from_pytree`` turns
 such a pytree (numpy leaves) into this port's state_dict:
 
-    kernel (HWIO)               -> weight (OIHW)
+    kernel (HWIO)               -> weight (OIHW); ``weights`` at the CSF
+                                   gOctConvs ``fuse.conv``/``fuse1x1.conv``
     scale/offset/mean/var (BN)  -> weight/bias/running_mean/running_var
                                    (+ num_batches_tracked = 0)
+    scale/offset (GroupNorm)    -> weight/bias
     alpha (PReLU)               -> weight
     anything else (conv bias)   -> kept
 
 It is the JAX package's ``pytree_to_state_dict`` plus the
 ``num_batches_tracked`` buffers that ``nn.BatchNorm2d`` carries, so that
-``load_state_dict(strict=True)`` holds.
+``load_state_dict(strict=True)`` holds, for CSNet and CSF+Res2Net alike.
 """
 
 from __future__ import annotations
@@ -23,10 +25,15 @@ import torch
 
 _BN_LEAVES = {"scale": "weight", "offset": "bias", "mean": "running_mean",
               "var": "running_var"}
+# The CSF gOctConv names its dense weight `weights` (gOctConv.py:21); these
+# module paths exist only at the top of the CSF model (CSNet's head lives
+# under `oct_fuse.`)
+_CSF_PLURAL_WEIGHT_MODULES = ("fuse.conv.", "fuse1x1.conv.")
 
 
 def state_dict_from_pytree(params: dict) -> dict[str, torch.Tensor]:
-    """JAX CSNet parameter pytree -> this port's state_dict (CPU tensors)."""
+    """JAX CSNet or CSF parameter pytree -> this port's state_dict (CPU
+    tensors)."""
     flat: dict[str, torch.Tensor] = {}
 
     def walk(node: dict, prefix: str) -> None:
@@ -36,7 +43,9 @@ def state_dict_from_pytree(params: dict) -> dict[str, torch.Tensor]:
                 continue
             arr = np.asarray(v)
             if k == "kernel":
-                flat[f"{prefix}weight"] = torch.from_numpy(
+                name = ("weights" if prefix in _CSF_PLURAL_WEIGHT_MODULES
+                        else "weight")
+                flat[f"{prefix}{name}"] = torch.from_numpy(
                     arr.transpose(3, 2, 0, 1).copy())
             elif k == "alpha":
                 flat[f"{prefix}weight"] = torch.from_numpy(arr.copy())

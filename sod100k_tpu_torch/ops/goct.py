@@ -1,22 +1,31 @@
-"""Generalized Octave Convolution family (csnet flavor), NCHW.
+"""Generalized Octave Convolution family (csnet and csf flavors), NCHW.
 
 Port of ``sod100k_tpu/ops/goct.py:95-296``. An octave set (octset) is a list
 of NCHW tensors, one per resolution branch (branch i nominally at 1/2^i
 scale), with ``None`` for empty or pruned branches.
 
-Cross-scale resampling follows the reference CSNet gOctConv:
-coarse->fine = conv then bilinear upsample by 2^(i-j); fine->coarse =
-max-pool by 2^(j-i) then conv; stride 2 = avg-pool(2) on the input first.
+Cross-scale resampling follows one of the reference's two dialects:
+
+- "csnet" (CSNet's gOctConv): coarse->fine = conv then bilinear upsample by
+  2^(i-j); fine->coarse = max-pool by 2^(j-i) then conv; stride 2 =
+  avg-pool(2) on the input first;
+- "csf" (CSF+Res2Net's gOctConv): coarse->fine = conv then bilinear resize
+  to the *input set's* branch-j shape; fine->coarse = bilinear resize of
+  the input to that shape, then conv. The shapes need not be powers of two
+  apart (an input that is not a multiple of 32 gives odd branch sizes).
 
 The modules own their parameters under the reference's names
 (``conv.weight``, ``bns.<j>``, ``prelus.<j>``, ``convs.<j>``, ``msconv.<d>``,
-``bn``, ``prelu``), so a reference state_dict loads strictly. Branch keys
-exist only for branches with channels. Convolutions marked x100 carry the
-reference's Conv2dX100 weight scaling.
+``bn``, ``prelu``; the CSF gOctConv's dense weight is ``conv.weights``), so
+a reference state_dict loads strictly. Branch keys exist only for branches
+with channels. Convolutions marked x100 carry the reference's Conv2dX100
+weight scaling. The norm is batch norm (CSNet) or GroupNorm(32) (the CSF
+head, ``norm="gn"``).
 
 A train-mode forward can hand every module a ``GapCollector``: it records,
 per BN, the detached |spatial mean| of the post-PReLU activation, the
-signal of the dynamic-weight-decay penalty (``train/dynamic_wd.py``).
+signal of the dynamic-weight-decay penalty (``train/dynamic_wd.py``). Group
+norms are never recorded.
 """
 
 from __future__ import annotations
@@ -27,8 +36,8 @@ import torch
 from torch import nn
 
 from .conv import ConvWeight, conv2d
-from .norm import BN_EPS, norm_act
-from .resample import avg_pool, max_pool, upsample_bilinear
+from .norm import BN_EPS, GN_GROUPS, norm_act
+from .resample import avg_pool, max_pool, resize_bilinear, upsample_bilinear
 
 Split = Sequence[int]
 OctSet = list  # list of Optional[torch.Tensor]
@@ -59,12 +68,13 @@ class GapCollector:
         self.gap[self.paths[bn]] = y.float().mean(dim=(2, 3)).abs().detach()
 
 
-def _norm_act(bn: nn.BatchNorm2d, act: nn.PReLU, x: torch.Tensor,
+def _norm_act(norm: nn.Module, act: nn.PReLU, x: torch.Tensor,
               gap: Optional[GapCollector]) -> torch.Tensor:
-    """``norm_act``, recorded in ``gap`` when one is given."""
-    y = norm_act(bn, act, x)
-    if gap is not None:
-        gap.record(bn, y)
+    """``norm_act``, recorded in ``gap`` when one is given and the norm is
+    a batch norm."""
+    y = norm_act(norm, act, x)
+    if gap is not None and isinstance(norm, nn.BatchNorm2d):
+        gap.record(norm, y)
     return y
 
 
@@ -77,6 +87,14 @@ def _offsets(split: Split) -> list[int]:
 
 def _bn(c: int, device) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=BN_EPS, device=device)
+
+
+def _norm(kind: str, c: int, device) -> nn.Module:
+    if kind == "gn":
+        return nn.GroupNorm(GN_GROUPS, c, eps=BN_EPS, device=device)
+    if kind != "bn":
+        raise ValueError(f"unknown norm {kind!r}")
+    return _bn(c, device)
 
 
 def _prelu(c: int, device) -> nn.PReLU:
@@ -93,13 +111,17 @@ def goct_conv(
     stride: int = 1,
     padding: int = 0,
     dilation: int = 1,
+    flavor: str = "csnet",
 ) -> OctSet:
     """Generalized octave convolution over an octset.
 
     ``weight`` is the dense OIHW tensor (sum(out_split), sum(in_split), kh,
     kw); each (in-branch, out-branch) pair convolves with its slice, and the
     contributions to an output branch are summed in input-branch order.
+    ``flavor`` picks the cross-scale resampling dialect.
     """
+    if flavor not in ("csnet", "csf"):
+        raise ValueError(f"unknown gOctConv flavor {flavor!r}")
     in_off = _offsets(in_split)
     out_off = _offsets(out_split)
     ysets: list[list[torch.Tensor]] = [[] for _ in out_split]
@@ -112,15 +134,24 @@ def goct_conv(
                 continue
             w = weight[out_off[j]:out_off[j + 1], in_off[i]:in_off[i + 1]]
             b = None if bias is None else bias[out_off[j]:out_off[j + 1]]
-            if i > j:
+            if i == j:
+                y = conv2d(x, w, b, padding=padding, dilation=dilation)
+            elif flavor == "csf":
+                tgt = xset[j].shape[2:]
+                if i > j:
+                    y = resize_bilinear(
+                        conv2d(x, w, b, padding=padding, dilation=dilation),
+                        tgt)
+                else:
+                    y = conv2d(resize_bilinear(x, tgt), w, b,
+                               padding=padding, dilation=dilation)
+            elif i > j:
                 y = upsample_bilinear(
                     conv2d(x, w, b, padding=padding, dilation=dilation),
                     2 ** (i - j))
-            elif i < j:
+            else:
                 y = conv2d(max_pool(x, 2 ** (j - i)), w, b, padding=padding,
                            dilation=dilation)
-            else:
-                y = conv2d(x, w, b, padding=padding, dilation=dilation)
             ysets[j].append(y)
     out: OctSet = []
     for ys in ysets:
@@ -134,21 +165,40 @@ def goct_conv(
     return out
 
 
+class PluralConvWeight(ConvWeight):
+    """The CSF gOctConv's dense weight, which the reference names
+    ``weights`` (CSF+Res2Net gOctConv.py:21); ``.weight`` reads it."""
+
+    def __init__(self, cout: int, cin: int, kernel: int, *, device=None):
+        nn.Module.__init__(self)
+        self.weights = nn.Parameter(
+            torch.empty(cout, cin, kernel, kernel, device=device))
+        self.register_parameter("bias", None)
+
+    @property
+    def weight(self) -> nn.Parameter:
+        return self.weights
+
+
 class GOctCBR(nn.Module):
-    """gOctConv (or a plain x100 conv when 1-in/1-out) + per-branch BN +
+    """gOctConv (or a plain x100 conv when 1-in/1-out) + per-branch norm +
     PReLU: ``goct_cbr``. The x100 weight scale applies only on the
-    single-branch path (reference gOctaveCBR)."""
+    single-branch path (reference gOctaveCBR). ``flavor="csf"`` resamples
+    in the CSF dialect and names the weight ``weights``; ``norm="gn"``
+    takes GroupNorm(32) for batch norm."""
 
     def __init__(self, in_split: Split, out_split: Split, kernel: int, *,
-                 stride: int = 1, padding: int = 0, device=None):
+                 stride: int = 1, padding: int = 0, flavor: str = "csnet",
+                 norm: str = "bn", device=None):
         super().__init__()
         self.in_split = tuple(int(c) for c in in_split)
         self.out_split = tuple(int(c) for c in out_split)
-        self.stride, self.padding = stride, padding
-        self.conv = ConvWeight(sum(self.out_split), sum(self.in_split), kernel,
-                               device=device)
+        self.stride, self.padding, self.flavor = stride, padding, flavor
+        weight = PluralConvWeight if flavor == "csf" else ConvWeight
+        self.conv = weight(sum(self.out_split), sum(self.in_split), kernel,
+                           device=device)
         live = [(str(j), c) for j, c in enumerate(self.out_split) if c]
-        self.bns = nn.ModuleDict({k: _bn(c, device) for k, c in live})
+        self.bns = nn.ModuleDict({k: _norm(norm, c, device) for k, c in live})
         self.prelus = nn.ModuleDict({k: _prelu(c, device) for k, c in live})
 
     def forward(self, xset: OctSet, gap: Optional[GapCollector] = None
@@ -159,7 +209,8 @@ class GOctCBR(nn.Module):
         else:
             yset = goct_conv(xset, self.conv.weight, None,
                              in_split=self.in_split, out_split=self.out_split,
-                             stride=self.stride, padding=self.padding)
+                             stride=self.stride, padding=self.padding,
+                             flavor=self.flavor)
         out: OctSet = []
         for j, y in enumerate(yset):
             if y is None or self.out_split[j] == 0:
@@ -198,36 +249,42 @@ class SimplifiedGOctCBR(nn.Module):
 
 
 class MSBlock(nn.Module):
-    """Parallel dilated 3x3 x100 convs (dilations 1/2/4/8/16), concatenated,
-    then BN + PReLU: ``ms_block``. Zero-width dilations are skipped."""
+    """Parallel dilated 3x3 convs (dilations 1/2/4/8/16), concatenated,
+    then norm + PReLU: ``ms_block``. Zero-width dilations are skipped. The
+    convs are x100 unless ``x100=False`` (the CSF head's plain convs);
+    ``norm="gn"`` takes GroupNorm(32) for batch norm."""
 
-    def __init__(self, cin: int, dil_split: Split, *, device=None):
+    def __init__(self, cin: int, dil_split: Split, *, norm: str = "bn",
+                 x100: bool = True, device=None):
         super().__init__()
         self.dil_split = tuple(int(c) for c in dil_split)
+        self.weight_scale = 100.0 if x100 else 1.0
         self.msconv = nn.ModuleDict({
             str(i): ConvWeight(c, cin, 3, device=device)
             for i, c in enumerate(self.dil_split) if c})
-        self.bn = _bn(sum(self.dil_split), device)
+        self.bn = _norm(norm, sum(self.dil_split), device)
         self.prelu = _prelu(sum(self.dil_split), device)
 
     def forward(self, x: torch.Tensor, gap: Optional[GapCollector] = None
                 ) -> torch.Tensor:
         outs = [conv2d(x, self.msconv[str(i)].weight, padding=d, dilation=d,
-                       weight_scale=100.0)
+                       weight_scale=self.weight_scale)
                 for i, d in enumerate(DILATIONS) if self.dil_split[i]]
         y = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
         return _norm_act(self.bn, self.prelu, y, gap)
 
 
 class PallMSBlock(nn.Module):
-    """One MSBlock per octave branch: ``pall_ms_block``."""
+    """One MSBlock per octave branch: ``pall_ms_block``; ``norm`` and
+    ``x100`` pass through to each."""
 
     def __init__(self, in_split: Split, dil_splits: Sequence[Split], *,
-                 device=None):
+                 norm: str = "bn", x100: bool = True, device=None):
         super().__init__()
         self.live = tuple(max(int(v) for v in ds) != 0 for ds in dil_splits)
         self.convs = nn.ModuleDict({
-            str(i): MSBlock(int(in_split[i]), ds, device=device)
+            str(i): MSBlock(int(in_split[i]), ds, norm=norm, x100=x100,
+                            device=device)
             for i, ds in enumerate(dil_splits) if self.live[i]})
 
     def forward(self, xset: OctSet, gap: Optional[GapCollector] = None

@@ -1,14 +1,18 @@
 """Spatial resampling for octave feature sets (NCHW).
 
-Port of ``sod100k_tpu/ops/resample.py:79-122,178-191``:
+Port of ``sod100k_tpu/ops/resample.py:79-191``:
 
 - coarse->fine paths upsample bilinearly with half-pixel centers and edge
   clamping (``F.interpolate(mode='bilinear', align_corners=False)``),
 - fine->coarse paths max-pool without overlap,
-- stride-2 gOctConvs average-pool their input first.
+- stride-2 gOctConvs average-pool their input first,
+- the CSF dialect resizes between branch shapes of any ratio
+  (``resize_bilinear``), and its Res2Net backbone pools with torch's own
+  ``nn.MaxPool2d``/``nn.AvgPool2d`` semantics (``max_pool_torch``,
+  ``avg_pool_torch``: padding, ceil mode, count_include_pad).
 
-Pools are floor mode: trailing rows/columns that do not fill a window are
-dropped, as in the JAX package.
+The octave pools are floor mode: trailing rows/columns that do not fill a
+window are dropped, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,3 +50,19 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
         return x
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=False, antialias=False)
+
+
+def max_pool_torch(x: torch.Tensor, kernel: int, stride: int,
+                   padding: int) -> torch.Tensor:
+    """``nn.MaxPool2d(kernel, stride, padding)``, floor output shape (the
+    Res2Net stem pool)."""
+    return F.max_pool2d(x, kernel, stride, padding)
+
+
+def avg_pool_torch(x: torch.Tensor, kernel: int, stride: int,
+                   padding: int = 0, ceil_mode: bool = False,
+                   count_include_pad: bool = True) -> torch.Tensor:
+    """``nn.AvgPool2d`` with ceil mode and count_include_pad (the
+    Bottle2neck stage pool and the downsample shortcut's pool)."""
+    return F.avg_pool2d(x, kernel, stride, padding, ceil_mode=ceil_mode,
+                        count_include_pad=count_include_pad)

@@ -1,13 +1,16 @@
 """Serving artifacts and the bucketed ServingModel.
 
-Port of ``sod100k_tpu/serve.py:58-221``. The JAX package exports StableHLO;
+Port of ``sod100k_tpu/serve.py:28-221``. The JAX package exports StableHLO;
 here an artifact is a directory holding
 
-    meta.json         input/output contract, buckets, compute dtype, torch version
-    layer_config.bin  the architecture, in the reference's pickle format
+    meta.json         family, input/output contract, buckets, compute dtype,
+                      torch version (CSF: the backbone's name)
+    layer_config.bin  CSNet only: the architecture, in the reference's
+                      pickle format
     model.pt          the f32 state_dict (``torch.save``)
 
-and loading rebuilds the CSNet module on an explicit device. The wire
+and loading rebuilds the model (CSNet or CSF+Res2Net) on an explicit
+device. The wire
 contracts are the JAX package's: ``wire="f32"`` takes ImageNet-normalized
 float32 NHWC and returns the float32 (N,H,W,1) sigmoid; ``wire="u8"`` takes
 raw uint8 RGB (normalized on device) and returns trunc(sigmoid*255) as
@@ -22,6 +25,9 @@ import os
 import numpy as np
 import torch
 
+from torch import nn
+
+from .arch.csf_res2net import CSFNet
 from .arch.csnet import CSNet
 from .arch.layer_config import LayerConfig
 from .train.step import make_eval_step
@@ -29,14 +35,21 @@ from .train.step import make_eval_step
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def export_artifact(out_dir: str, model: CSNet, *, batch=1,
+def export_artifact(out_dir: str, model: nn.Module, *, batch=1,
                     hw: tuple[int, int] = (224, 224),
                     dtype: torch.dtype = torch.bfloat16,
                     wire: str = "f32") -> str:
-    """Write a serving artifact for ``model`` (a CSNet). ``batch`` is an int
-    or a sequence of ints: the shape buckets the ServingModel routes request
-    batches onto (pad to the smallest covering bucket; chunk over the
-    largest)."""
+    """Write a serving artifact for ``model`` (a CSNet or a CSFNet).
+    ``batch`` is an int or a sequence of ints: the shape buckets the
+    ServingModel routes request batches onto (pad to the smallest covering
+    bucket; chunk over the largest)."""
+    if isinstance(model, CSNet):
+        family = {"family": "csnet"}
+    elif isinstance(model, CSFNet):
+        family = {"family": "csf", "backbone": model.backbone}
+    else:
+        raise TypeError(f"cannot export a {type(model).__name__}; a CSNet "
+                        f"or a CSFNet")
     if wire not in ("f32", "u8"):
         raise ValueError(f"unknown wire {wire!r}")
     dtype_name = str(dtype).removeprefix("torch.")
@@ -45,11 +58,12 @@ def export_artifact(out_dir: str, model: CSNet, *, batch=1,
     batches = sorted({int(b) for b in
                       (batch if isinstance(batch, (list, tuple)) else [batch])})
     os.makedirs(out_dir, exist_ok=True)
-    model.lc.save(os.path.join(out_dir, "layer_config.bin"))
+    if family["family"] == "csnet":
+        model.lc.save(os.path.join(out_dir, "layer_config.bin"))
     torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
                os.path.join(out_dir, "model.pt"))
     with open(os.path.join(out_dir, "meta.json"), "w") as f:
-        json.dump({"family": "csnet", "batch": batches[-1],
+        json.dump({**family, "batch": batches[-1],
                    "batches": batches, "h": hw[0], "w": hw[1],
                    "compute_dtype": dtype_name, "wire": wire,
                    "torch_version": torch.__version__,
@@ -79,9 +93,9 @@ class ServingModel:
     def __init__(self, path: str, device: str | torch.device):
         with open(os.path.join(path, "meta.json")) as f:
             self.meta = json.load(f)
-        if self.meta.get("family") != "csnet":
-            raise ValueError(f"unsupported artifact family "
-                             f"{self.meta.get('family')!r}")
+        family = self.meta.get("family")
+        if family not in ("csnet", "csf"):
+            raise ValueError(f"unsupported artifact family {family!r}")
         # version guard: torch.save files load on the same or a newer torch;
         # refuse an artifact written by a newer one with a clear message
         # instead of a deserializer traceback
@@ -94,8 +108,11 @@ class ServingModel:
                 f"artifact with this runtime's torch")
         self.batches = sorted(self.meta["batches"])
         self.device = torch.device(device)
-        lc = LayerConfig.load(os.path.join(path, "layer_config.bin"))
-        self.model = CSNet(lc, device=self.device)
+        if family == "csnet":
+            lc = LayerConfig.load(os.path.join(path, "layer_config.bin"))
+            self.model = CSNet(lc, device=self.device)
+        else:
+            self.model = CSFNet(self.meta["backbone"], device=self.device)
         state = torch.load(os.path.join(path, "model.pt"),
                            map_location=self.device, weights_only=True)
         self.model.load_state_dict(state, strict=True)

@@ -1,5 +1,6 @@
 """The CUDA kernel on the card: fused_dw_chain against its plain version;
-and the train step on the card against the CPU.
+the CSNet and CSF+Res2Net train steps and forwards on the card against the
+CPU.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. Imports neither jax nor the
 JAX package, so it runs on a machine that has only PyTorch:
@@ -17,10 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from sod100k_tpu_torch.arch.csf_res2net import CSFNet
 from sod100k_tpu_torch.arch.csnet import CSNet, calibrate_bn
 from sod100k_tpu_torch.arch.layer_config import init_layers
 from sod100k_tpu_torch.ops import dw_chain
 from sod100k_tpu_torch.prune import build_pruned_csnet, prune
+from sod100k_tpu_torch.train.csf_step import (freeze_reference_params,
+                                              make_csf_optimizer,
+                                              make_csf_train_step)
 from sod100k_tpu_torch.train.optim import make_sgd
 from sod100k_tpu_torch.train.step import make_eval_step, make_train_step
 
@@ -216,6 +221,55 @@ def test_eval_after_adam_steps_equals_a_fresh_load(cuda, foreach):
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-5
     assert (got - before).abs().max().item() > 1e-4  # the steps moved it
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (37, 45)])
+def test_csf_forward_matches_cpu(cuda, hw):
+    """CSF+Res2Net-50 in f32 (TF32 off), the seeded reference init, card
+    against CPU: max |dlogit| < 1e-4 * max(1, max|logit|), sigmoid mean
+    |d| < 1e-5; 37x45 resizes between branch shapes at non-integer ratios
+    and pools in ceil mode."""
+    model = CSFNet("res2net50", seed=0, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, *hw, 3), dtype=np.float32))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert torch.isfinite(got).all() and got.shape == want.shape
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() < 1e-4 * scale
+    assert (torch.sigmoid(got) - torch.sigmoid(want)).abs().mean() < 1e-5
+
+
+def test_csf_micro_step_matches_cpu(cuda):
+    """One masked f32 micro-step of 2 (the gradients wait), card against
+    CPU: loss within rel 1e-4, gradients within L2-rel 2e-3 globally and
+    per tensor (floor 1e-6 of the global norm); nothing moved."""
+    rng = np.random.default_rng(3)
+    batch = _train_batch(n=2, hw=64, seed=3)
+    batch["mask"] = (rng.random((2, 64, 64, 1)) > 0.2).astype(np.float32)
+    models, loss = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = CSFNet("res2net50", seed=1, device=dev)
+        freeze_reference_params(model)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        step = make_csf_train_step(model, make_csf_optimizer(model),
+                                   iter_size=2, batch_size=2, from_u8=True)
+        loss[dev] = step(batch, 5e-5)["loss"].item()
+        assert all(torch.equal(v, before[k])
+                   for k, v in model.state_dict().items())
+        models[dev] = model
+    assert loss["cuda"] == pytest.approx(loss["cpu"], rel=1e-4)
+    want = {n: p.grad for n, p in models["cpu"].named_parameters()
+            if p.requires_grad}
+    got = dict(models["cuda"].named_parameters())
+    gnorm = sum(_l2(g) ** 2 for g in want.values()) ** 0.5
+    total = 0.0
+    for name, g in want.items():
+        err = _l2(got[name].grad.cpu() - g)
+        total += err ** 2
+        assert err / max(_l2(g), 1e-6 * gnorm) < 2e-3, name
+    assert total ** 0.5 / gnorm < 2e-3
 
 
 def _pruned_tail_shapes(n=2, hw=32):
