@@ -116,7 +116,30 @@ then CSF+Res2Net-50/101 at 336^2. Phases; any failure exits non-zero:
    backbones (host clock, profiler device time by kernel, idle share), the
    B=1 latency, the B=8 bf16 micro-step (median of 20, device time, peak
    memory), the epoch's img/s, and the head's largest resize in NCHW
-   against channels-last.
+   against channels-last;
+11. the drivers as a user runs them (``python -m sod100k_tpu_torch.cli.*``)
+   on CSNet-L at basewidth 40 over a synthetic tree of 96 DUTS-TR and 48
+   ECSSD PNG pairs at 300x400, counting ``fused_dw_chain`` launches
+   (``cli_launches``, > 0) over the in-process stages:
+11a. a train YAML shaped like the reference's csnet-L-x2_train.yml (B=24 at
+   224^2, Adam with dynamic weight decay at lr 1e-4, FLOPS.WEIGHT 3.0,
+   FINETUNE.THRES 1e-20 unquoted, GPU: 0) read back through the port's
+   YAML reader;
+11b. ``cli.train --config <yml> --epochs 1`` in a subprocess: exit 0,
+   checkpoint_epoch1.pth.tar, a finite val MAE;
+11c. in-process on the card: ``run_finetune`` (one epoch), ``run_test``
+   at 224^2 and in the ceil-to-16 mode (the trained weights with BN
+   statistics recalibrated on 12 test images), the f32 maps of 4 images
+   within one level of the same driver on the CPU in both modes (the
+   ceil-to-16 mode's 304x400 and 400x304 forwards give the kernel its own
+   tail shapes), ``run_eval`` (full suite, metrics in [0, 1]),
+   ``run_testall_resident``;
+11d. ``cli.export`` to buckets 1 and 32 at bf16 on the u8 wire, then
+   ``cli.serve`` in a subprocess answering 8 .npy requests over HTTP and
+   one PNG of the split (decoded, resized and encoded without cv2; the PNG
+   map within one level of the .npy answer for the same resized image);
+   times (not gated): the driver's epoch against phase 8b's f32 step,
+   test, eval and sweep img/s, and the phase's wall time.
 
 Needs torch with CUDA and nvcc; no jax, cv2, PIL or yaml. The second line from
 the end is a JSON summary of the kernels; the last line is the run's JSON
@@ -137,6 +160,8 @@ import ctypes
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -151,9 +176,11 @@ from sod100k_tpu_torch.arch.csf_res2net import CSFNet
 from sod100k_tpu_torch.arch.csnet import CSNet, calibrate_bn, count_params
 from sod100k_tpu_torch.arch.layer_config import init_layers
 from sod100k_tpu_torch.data.csf_dataset import CSFTrainData, padded_batches
-from sod100k_tpu_torch.data.image_io import (resize_f32_linear,
+from sod100k_tpu_torch.data.image_io import (decode_png, read_image,
+                                             resize_f32_linear,
                                              resize_u8_linear, write_png)
-from sod100k_tpu_torch.data.pipeline import SalData, normalize_u8
+from sod100k_tpu_torch.data.pipeline import (SalData, _imread_rgb_u8,
+                                             normalize_u8)
 from sod100k_tpu_torch.data.resident import (build_resident_dataset,
                                              build_resident_val_dataset,
                                              make_resident_csf_epoch_fn,
@@ -909,6 +936,7 @@ def phase_train_times(model: CSNet, slim: CSNet, slim_calls: int,
     ms32 = float(np.median(step_ms(step, batches[1], 10)))
     peak32 = torch.cuda.max_memory_allocated()
     kernels, dev = profile_kernels(lambda: step(batches[2], LR, 1.0), 5)
+    step_times["ms_f32"] = ms32
     say(f"  train step B={TRAIN_BATCH} f32: {ms32:.3f} ms (median of 10), "
         f"{TRAIN_BATCH / ms32 * 1e3:.1f} img/s; device {dev:.3f} ms per "
         f"step ({1 - dev / ms32:.1%} idle); peak memory "
@@ -1858,6 +1886,387 @@ def phase_variants(gpu: str) -> None:
         say(f"    {t:.4f}  {n}")
 
 
+
+# ---------------------------------------------------------------------------
+# The drivers on the card (phase 11)
+
+DRIVER_TRAIN_PAIRS = 96   # four B=24 steps a driver epoch
+DRIVER_TEST_PAIRS = 48
+DRIVER_PARITY_PAIRS = 4
+DRIVER_REQUESTS = 8
+# shaped like the reference's csnet-L-x2_train.yml (CSNet_training/configs):
+# CSNet-L at basewidth 40, the dynamic-weight-decay recipe; 1e-4 and 1e-20
+# are strings in YAML 1.1 that the schema's float defaults coerce
+TRAIN_YAML = """\
+TASK: csnet-L-x2
+GPU: 0
+PRINT_FREQ: 2
+MODEL:
+  ARCH: csnet
+  BASIC_SPLIT: [0.5, 0.5]
+LOSS:
+  MLOSS: 4
+DATA:
+  DIR: {root}/DUTS-TR
+  BATCH_SIZE: 24
+  WORKERS: 4
+  SAVEDIR: {root}/results
+  IMAGE_H: 224
+  IMAGE_W: 224
+VAL:
+  DIR: {root}/ECSSD
+TEST:
+  DATASET_PATH: {root}
+  DATASETS: ["ECSSD"]
+  IMAGE_H: 224
+  IMAGE_W: 224
+  ENABLE: False   # no finetune dumps
+SOLVER:
+  METHOD: Adam_dynamic_weight_decay
+  LR: 1e-4
+  ADJUST_STEP: True
+  STEPS: [200, 250]
+  MAX_EPOCHS: 300
+PRUNE:
+  BNS: True
+  SHOW: False
+AUTO:
+  ENABLE: True
+  EXPAND: 2.0
+  FINETUNE: 300
+  FLOPS:
+    ENABLE: True
+    WEIGHT: 3.0
+FINETUNE:
+  THRES: 1e-20
+"""
+
+
+def quiet(msg, display: bool = True) -> None:
+    """A driver log that drops its lines (the phase prints its own)."""
+
+
+def phase_driver_config(root: str):
+    """11a: the train YAML read back through the port's reader and the
+    config node."""
+    from sod100k_tpu_torch.config import get_cfg, miniyaml
+
+    yml = os.path.join(root, "csnet-L-x2_train.yml")
+    with open(yml, "w") as f:
+        f.write(TRAIN_YAML.format(root=root))
+    raw = miniyaml.load_file(yml)
+    check(raw["FINETUNE"]["THRES"] == "1e-20" and raw["SOLVER"]["LR"] == "1e-4"
+          and raw["GPU"] == 0, "YAML 1.1 scalars as PyYAML reads them")
+    cfg = get_cfg()
+    cfg.merge_from_file(yml)
+    check(cfg.FINETUNE.THRES == 1e-20 and isinstance(cfg.FINETUNE.THRES, float)
+          and cfg.SOLVER.LR == 1e-4 and cfg.AUTO.EXPAND == 2.0
+          and cfg.MODEL.BASIC_SPLIT == [0.5, 0.5]
+          and cfg.SOLVER.METHOD == "Adam_dynamic_weight_decay"
+          and cfg.AUTO.FLOPS.WEIGHT == 3.0 and cfg.DATA.BATCH_SIZE == 24
+          and cfg.DATA.IMAGE_H == cfg.DATA.IMAGE_W == 224 and cfg.GPU == 0,
+          "the train YAML's values in the config")
+    say(f"  {yml}: THRES {cfg.FINETUNE.THRES!r}, LR {cfg.SOLVER.LR!r}, "
+        f"basewidth {round(20 * cfg.AUTO.EXPAND)}, B={cfg.DATA.BATCH_SIZE} at "
+        f"{cfg.DATA.IMAGE_H}^2")
+    return yml, cfg
+
+
+def phase_driver_train(yml: str, cfg) -> dict:
+    """11b: ``python -m sod100k_tpu_torch.cli.train --config <yml> --epochs
+    1`` as a user runs it."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "sod100k_tpu_torch.cli.train", "--config",
+         yml, "--epochs", "1"], cwd=repo, capture_output=True, text=True,
+        timeout=600, env={**os.environ, "PYTHONPATH": repo})
+    wall = time.perf_counter() - t0
+    if out.returncode:
+        say(out.stdout[-3000:] + out.stderr[-3000:])
+    check(out.returncode == 0, f"cli.train exit code {out.returncode}")
+    for line in out.stdout.splitlines():
+        if line.startswith(("  + Number", "epoch time", "max memory",
+                            " epoch:")):
+            say(f"  | {line.strip()}")
+    ck = os.path.join(cfg.DATA.SAVEDIR, cfg.TASK, "checkpoint",
+                      "checkpoint_epoch1.pth.tar")
+    check(os.path.isfile(ck), "cli.train wrote checkpoint_epoch1.pth.tar")
+    m = re.search(r" epoch: 1 mae: (\S+)", out.stdout)
+    mae = float(m.group(1)) if m else float("nan")
+    check(np.isfinite(mae) and 0.0 <= mae <= 1.0, f"val MAE {mae} finite")
+    rate = re.search(r"epoch time: (\S+)s \((\S+) img/s\)", out.stdout)
+    return {"ckpt": ck, "wall_s": wall, "mae": mae,
+            "epoch_s": float(rate.group(1)), "img_s": float(rate.group(2))}
+
+
+def calibrated_checkpoint(cfg, ck: str, root: str, task: str) -> str:
+    """The trained weights with BN statistics recalibrated on 12 of the
+    test split's images (a few steps leave the running statistics at
+    their init, where the x100 net explodes or dies in eval mode), saved
+    as epoch 1 of ``task``."""
+    from sod100k_tpu_torch.arch.layer_config import LayerConfig
+    from sod100k_tpu_torch.cli.common import load_any_checkpoint
+
+    lc = LayerConfig.load(os.path.join(cfg.DATA.SAVEDIR, cfg.TASK,
+                                       "layer_configs", "layer_config_0.bin"))
+    model = CSNet(lc, device="cuda")
+    load_any_checkpoint(ck, model)
+    img_dir = os.path.join(root, "ECSSD", "images")
+    names = sorted(os.listdir(img_dir))[-12:]
+    calibrate_bn(model, normalize_u8(torch.from_numpy(np.stack([
+        resize_u8_linear(_imread_rgb_u8(os.path.join(img_dir, n)), HW)
+        for n in names])).cuda()))
+    out = os.path.join(cfg.DATA.SAVEDIR, task, "checkpoint",
+                       "checkpoint_epoch1.pth.tar")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    save_checkpoint(out, model, None, epoch=1)
+    return out
+
+
+def _driver_maps(sal_dir: str) -> dict:
+    return {n: read_image(os.path.join(sal_dir, n))
+            for n in sorted(os.listdir(sal_dir))}
+
+
+def phase_driver_stages(cfg, root: str, gpu: str) -> dict:
+    """11c: finetune, test (fixed 224^2 and ceil-to-16), eval, the resident
+    sweep in-process on the card, the f32 maps of 4 images against the
+    same driver on the CPU."""
+    from sod100k_tpu_torch.cli.eval import run_eval
+    from sod100k_tpu_torch.cli.finetune import run_finetune
+    from sod100k_tpu_torch.cli.test import run_test, run_testall_resident
+
+    t = {}
+    t0 = time.perf_counter()
+    ft = run_finetune(cfg, from_epoch=1, max_epochs=1, log=quiet,
+                      device="cuda")
+    t["finetune_s"] = time.perf_counter() - t0
+    check(np.isfinite(ft["best_mae"]) and os.path.isfile(os.path.join(
+        ft["ft_dir"], "checkpoint_epoch1.pth.tar")), "finetune epoch")
+    say(f"  finetune: pruned at {cfg.FINETUNE.THRES:g}, one epoch, val MAE "
+        f"{ft['best_mae']:.6f}, {t['finetune_s']:.1f} s")
+
+    c = cfg.clone()
+    c.TASK = "L2test"
+    trained = os.path.join(cfg.DATA.SAVEDIR, cfg.TASK, "checkpoint",
+                           "checkpoint_epoch1.pth.tar")
+    c.TEST.CHECKPOINT = calibrated_checkpoint(cfg, trained, root, c.TASK)
+    c.TEST.MODEL_CONFIG = os.path.join(cfg.DATA.SAVEDIR, cfg.TASK,
+                                       "layer_configs", "layer_config_0.bin")
+    res = run_test(c, log=quiet, device="cuda")["datasets"]["ECSSD"]
+    t["test_img_s"] = res["img_per_sec"]
+    check(len(os.listdir(res["sal_dir"])) == DRIVER_TEST_PAIRS,
+          "fixed-size test dumped every map")
+    cc = c.clone()
+    cc.TASK = "L2ceil16"
+    cc.TEST.IMAGE_H = cc.TEST.IMAGE_W = 0
+    ceil = run_test(cc, log=quiet, device="cuda")["datasets"]["ECSSD"]
+    t["ceil_img_s"] = ceil["img_per_sec"]
+    maps = _driver_maps(ceil["sal_dir"])
+    check(len(maps) == DRIVER_TEST_PAIRS and all(
+        m.dtype == np.uint8 for m in maps.values()), "ceil-to-16 maps")
+    say(f"  test: {DRIVER_TEST_PAIRS} images at 224^2 with PNG dumps "
+        f"{t['test_img_s']:.1f} img/s; ceil-to-16 per image "
+        f"{t['ceil_img_s']:.1f} img/s (host clock, first call included)  "
+        f"[{gpu}]")
+
+    # the same driver on the card and on the CPU, f32, 4 images, in the
+    # fixed-size mode and the ceil-to-16 mode (ECSSD4 alternates
+    # orientation: 304x400 and 400x304 forwards, their own tail shapes)
+    for mode, base in (("224^2", c), ("ceil-to-16", cc)):
+        par = {}
+        for dev in ("cuda", "cpu"):
+            cp = base.clone()
+            cp.DATA.SAVEDIR = os.path.join(root, f"parity_{dev}")
+            cp.TASK = f"{base.TASK}_{dev}"
+            cp.TEST.DATASETS = ["ECSSD4"]
+            cp.DATA.BATCH_SIZE = DRIVER_PARITY_PAIRS
+            par[dev] = _driver_maps(run_test(cp, log=quiet, device=dev)[
+                "datasets"]["ECSSD4"]["sal_dir"])
+        check(par["cuda"].keys() == par["cpu"].keys()
+              and len(par["cuda"]) == DRIVER_PARITY_PAIRS,
+              f"parity map names ({mode})")
+        shapes = sorted({m.shape for m in par["cuda"].values()})
+        check(all(par["cuda"][n].shape == par["cpu"][n].shape
+                  for n in par["cpu"]), f"parity map shapes ({mode})")
+        worst = max(int(np.abs(par["cuda"][n].astype(int)
+                               - par["cpu"][n].astype(int)).max())
+                    for n in par["cpu"])
+        check(worst <= 1,
+              f"card maps {worst} levels from the CPU's (bar 1, {mode})")
+        check(all(m.std() > 0 for m in par["cuda"].values()),
+              f"the card's maps are not constant ({mode})")
+        say(f"  test maps ({mode}), f32 card vs CPU on "
+            f"{DRIVER_PARITY_PAIRS} images of shapes {shapes}: at most "
+            f"{worst} level(s) apart")
+
+    t0 = time.perf_counter()
+    best = run_eval(c, epoch_range=(1, 2), suite="full", log=quiet,
+                    device="cuda")
+    t["eval_img_s"] = DRIVER_TEST_PAIRS / (time.perf_counter() - t0)
+    with open(os.path.join(c.DATA.SAVEDIR, c.TASK,
+                           "FmeasureResults_ECSSD.txt")) as f:
+        vals = {k: float(v) for k, v in re.findall(r"(\w+) (\d+\.\d+)",
+                                                   f.read())}
+    check(best["ECSSD"]["epoch"] == 1 and vals and all(
+        0.0 <= v <= 1.0 for v in vals.values()), f"eval metrics {vals}")
+    say(f"  eval (full suite, device backend): {vals}; "
+        f"{t['eval_img_s']:.1f} img/s  [{gpu}]")
+
+    cs = c.clone()
+    cs.CUDA.TEST_RESIDENT = True
+    cs.TEST.BEGIN = cs.TEST.INTERVAL = 1
+    t0 = time.perf_counter()
+    sweep = run_testall_resident(cs, log=quiet, device="cuda")
+    t["sweep_img_s"] = DRIVER_TEST_PAIRS / (time.perf_counter() - t0)
+    check(sweep["ECSSD"]["epoch"] == 1
+          and 0.0 < sweep["ECSSD"]["max_f"] <= 1.0, f"resident sweep {sweep}")
+    say(f"  resident sweep: MaxF {sweep['ECSSD']['max_f']:.6f}; "
+        f"{t['sweep_img_s']:.1f} img/s, the store's build included  [{gpu}]")
+    return {"times": t, "test_cfg": c}
+
+
+def phase_driver_serving(c, root: str, gpu: str) -> None:
+    """11d: ``cli.export`` to buckets 1 and 32 at bf16 on the u8 wire, then
+    ``python -m sod100k_tpu_torch.cli.serve`` answering 8 requests over
+    HTTP from 2 client threads."""
+    import socket
+
+    from sod100k_tpu_torch.cli import export as cexport
+
+    yml = os.path.join(root, "serve.yml")
+    with open(yml, "w") as f:
+        f.write(f"TEST:\n  MODEL_CONFIG: {c.TEST.MODEL_CONFIG}\n"
+                f"  CHECKPOINT: {c.TEST.CHECKPOINT}\n  IMAGE_H: 224\n"
+                f"  IMAGE_W: 224\n")
+    art = os.path.join(root, "artifact")
+    cexport.main(["--config", yml, "--out", art, "--batch", "1,32",
+                  "--dtype", "bf16", "--wire", "u8"])
+    with socket.socket() as sk:  # a free port on this host
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sod100k_tpu_torch.cli.serve", "--artifact",
+         art, "--port", str(port)], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": repo})
+    url = f"http://127.0.0.1:{port}"
+    try:
+        t0 = time.perf_counter()
+        while True:
+            try:
+                with urllib.request.urlopen(url + "/healthz", timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                check(proc.poll() is None, "cli.serve exited early")
+                check(time.perf_counter() - t0 < 120, "cli.serve started")
+                time.sleep(0.5)
+        rng = np.random.default_rng(11)
+        reqs = [rng.integers(0, 256, (224, 224, 3), np.uint8)
+                for _ in range(DRIVER_REQUESTS)]
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            outs = list(pool.map(lambda x: post_npy(url, x), reqs))
+        check(all(o.shape == (224, 224, 1) and o.dtype == np.uint8
+                  for o in outs), "served maps' shape and dtype")
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        check(stats["requests"] == DRIVER_REQUESTS, "/stats request count")
+        # an encoded image: PNG in, resized on the server, PNG out
+        src = os.path.join(root, "ECSSD", "images",
+                           sorted(os.listdir(os.path.join(
+                               root, "ECSSD", "images")))[0])
+        with open(src, "rb") as f:
+            body = f.read()
+        req = urllib.request.Request(url + "/predict", data=body,
+                                     headers={"Content-Type": "image/png"},
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            check(r.status == 200 and r.headers["Content-Type"] == "image/png",
+                  f"/predict of a PNG: status {r.status}")
+            png = decode_png(r.read(), "the served PNG")
+        rgb = _imread_rgb_u8(src)
+        want = post_npy(url, resize_u8_linear(rgb, (224, 224)))[..., 0]
+        diff = int(np.abs(png.astype(int) - want.astype(int)).max()) \
+            if png.shape == want.shape else -1
+        check(png.dtype == np.uint8 and 0 <= diff <= 1,
+              f"served PNG {png.shape} {diff} level(s) from the .npy answer")
+        say(f"  /predict of a {rgb.shape[1]}x{rgb.shape[0]} PNG: a "
+            f"{png.shape[1]}x{png.shape[0]} PNG map, {diff} level(s) from "
+            f"the .npy answer for the same resized image")
+        say(f"  cli.export -> cli.serve: {stats['requests']} requests in "
+            f"{stats['dispatches']} dispatches, up after "
+            f"{time.perf_counter() - t0:.1f} s of the run  [{gpu}]")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def jpeg_readers() -> str:
+    """Whether PIL (the port's JPEG path) and torchvision's decode_jpeg
+    import here."""
+    import importlib
+
+    found = []
+    for mod, attr in (("PIL.Image", "open"), ("torchvision.io",
+                                              "decode_jpeg")):
+        try:
+            ok = hasattr(importlib.import_module(mod), attr)
+        except ImportError:
+            ok = False
+        found.append(f"{mod}.{attr} {'yes' if ok else 'no'}")
+    return ", ".join(found)
+
+
+def phase_drivers(gpu: str, step_times: dict) -> int:
+    """Phase 11: the drivers, as a user runs them, at CSNet-L's full width
+    on a synthetic DUTS-TR/ECSSD tree. Returns the fused_dw_chain launches
+    of the in-process stages."""
+    t11 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        make_synth_split(os.path.join(root, "DUTS-TR"), DRIVER_TRAIN_PAIRS,
+                         hw=SPLIT_HW, seed=3)
+        make_synth_split(os.path.join(root, "ECSSD"), DRIVER_TEST_PAIRS,
+                         hw=SPLIT_HW, seed=4)
+        for sub in ("images", "GT"):
+            src = os.path.join(root, "ECSSD", sub)
+            dst = os.path.join(root, "ECSSD4", sub)
+            os.makedirs(dst)
+            for n in sorted(os.listdir(src))[:DRIVER_PARITY_PAIRS]:
+                shutil.copy(os.path.join(src, n), dst)
+        say("11a: the train YAML through the port's reader")
+        yml, cfg = phase_driver_config(root)
+        say("11b: python -m sod100k_tpu_torch.cli.train --config <yml> "
+            "--epochs 1")
+        train = phase_driver_train(yml, cfg)
+        say(f"  cli.train: {train['wall_s']:.1f} s of wall time (process "
+            f"start included); epoch {train['epoch_s']:.1f} s, "
+            f"{train['img_s']:.1f} img/s (f32, hybrid front-end, the first "
+            f"steps included) against phase 8b's f32 step alone "
+            f"{TRAIN_BATCH / step_times['ms_f32'] * 1e3:.1f} img/s; val MAE "
+            f"{train['mae']:.6f}  [{gpu}]")
+        say("11c: finetune, test, eval and the resident sweep in-process")
+        torch.cuda.synchronize()
+        dw_chain.launches = 0
+        stages = phase_driver_stages(cfg, root, gpu)
+        torch.cuda.synchronize()
+        launches = dw_chain.launches
+        say("11d: cli.export and cli.serve")
+        phase_driver_serving(stages["test_cfg"], root, gpu)
+    say(f"  JPEG readers on this machine (real splits are JPEG): "
+        f"{jpeg_readers()}")
+    check(launches > 0, "phase 11 launched fused_dw_chain")
+    say(f"  phase 11 took {time.perf_counter() - t11:.1f} s; {launches} "
+        f"fused_dw_chain launches in its in-process stages  [{gpu}]")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -1978,6 +2387,10 @@ def main() -> None:
         f"port)")
     check(csf_launches == 0, "the CSF path launches no depthwise-tail kernel")
 
+    say("phase 11: the drivers (python -m sod100k_tpu_torch.cli.*) on "
+        "CSNet-L, B=24 at 224^2")
+    cli_launches = phase_drivers(gpu, train_step)
+
     print(json.dumps({"kernels": [{
         "name": "fused_dw_chain", "route": "cuda",
         "source": "sod100k_tpu_torch/csrc/dw_chain.cu",
@@ -1992,7 +2405,8 @@ def main() -> None:
         "ms_by": by["device"], "library_ms_by": by["library"],
         "host_us": tot["host"], "train_eval_launches": train_launches,
         "sweep_launches": sweep_launches,
-        "slim_launches": slim_launches, "csf_launches": csf_launches}]}))
+        "slim_launches": slim_launches, "csf_launches": csf_launches,
+        "cli_launches": cli_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

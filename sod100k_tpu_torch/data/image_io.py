@@ -4,14 +4,17 @@ The JAX package reads and resizes through cv2 (``data/pipeline.py:57-119``,
 ``data/resident.py``) and sizes JPEG headers through PIL. The machine with
 the card has neither, so the port carries:
 
-- ``read_png``: PNG on stdlib ``zlib`` + numpy. Bit depths 1/2/4/8/16;
-  gray, gray+alpha, RGB, RGBA and palette; all five row filters (None, Sub
-  and Up run vectorized; Average and Paeth depend on the byte to their left
-  and run byte by byte, slow but exact). Adam7-interlaced files are refused.
-- ``write_png``: 8-bit gray or RGB, rows filtered None or Up.
+- ``read_png`` / ``decode_png`` (bytes): PNG on stdlib ``zlib`` + numpy.
+  Bit depths 1/2/4/8/16; gray, gray+alpha, RGB, RGBA and palette; all five
+  row filters (None, Sub and Up run vectorized; Average and Paeth depend on
+  the byte to their left and run byte by byte, slow but exact).
+  Adam7-interlaced files are refused.
+- ``write_png`` / ``encode_png``: 8-bit gray or RGB, rows filtered None or
+  Up.
 - ``image_size``: (h, w) from the PNG or JPEG header alone.
-- ``read_image``: PNG through ``read_png``; anything else (JPEG) through PIL
-  when it imports, else an error naming the file.
+- ``read_image`` / ``decode_image`` (bytes): PNG through ``decode_png``;
+  anything else (JPEG) through PIL when it imports, else an error naming
+  the file.
 - ``resize_u8_linear``: cv2's ``INTER_LINEAR`` on uint8, bit for bit: 11-bit
   fixed-point weights, and the vertical pass of cv2's SIMD kernel
   ``((b0*(s0>>4))>>16 + (b1*(s1>>4))>>16 + 2) >> 2``, with the row weights
@@ -118,13 +121,17 @@ def _unpack_bits(data: np.ndarray, depth: int, samples: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode a PNG: (h, w) for gray and palette-less one-sample images,
+    """Decode a PNG file (``decode_png``)."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """Decode PNG bytes: (h, w) for gray and palette-less one-sample images,
     else (h, w, c) in the file's channel order (gray+alpha, RGB, RGBA;
     palette images come back RGB). uint8, or uint16 for 16-bit files.
     Gray samples of 1, 2 or 4 bits are scaled to 0..255, as libpng's
-    expand does for cv2."""
-    with open(path, "rb") as f:
-        data = f.read()
+    expand does for cv2. ``path`` names the source in errors."""
     ihdr, plte, idat = None, None, []
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
@@ -170,6 +177,14 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def write_png(path: str, img: np.ndarray, *, filter_type: int = 2,
               level: int = 6) -> None:
+    """Write ``encode_png``'s bytes to ``path``."""
+    data = encode_png(img, filter_type=filter_type, level=level, path=path)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray, *, filter_type: int = 2, level: int = 6,
+               path: str = "<bytes>") -> bytes:
     """Encode 8-bit gray (h, w) or RGB (h, w, 3) as PNG, every row filtered
     None (0) or Up (2), deflated at zlib ``level``."""
     img = np.ascontiguousarray(img)
@@ -188,12 +203,10 @@ def write_png(path: str, img: np.ndarray, *, filter_type: int = 2,
     body[:, 0] = filter_type
     body[:, 1:] = rows
     ctype = 0 if img.ndim == 2 else 2
-    with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype,
-                                              0, 0, 0))
-                + _chunk(b"IDAT", zlib.compress(body.tobytes(), level))
-                + _chunk(b"IEND", b""))
+    return (PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(body.tobytes(), level))
+            + _chunk(b"IEND", b""))
 
 
 # ---------------------------------------------------------------------------
@@ -233,14 +246,21 @@ def image_size(path: str) -> tuple[int, int]:
     return _pil_image(path).size[::-1]
 
 
-def _pil_image(path: str):
+def _pil_image(src, name: str | None = None):
+    """PIL's image of ``src`` (a path or a file object)."""
     try:
         from PIL import Image
     except ImportError:
         raise RuntimeError(
-            f"{path}: only PNG is read without PIL; install pillow for JPEG "
-            f"and other formats") from None
-    return Image.open(path)
+            f"{name or src}: only PNG is read without PIL; install pillow for "
+            f"JPEG and other formats") from None
+    return Image.open(src)
+
+
+def _pil_array(im) -> np.ndarray:
+    if im.mode not in ("L", "RGB", "RGBA", "I;16"):
+        im = im.convert("RGB")
+    return np.asarray(im)
 
 
 def read_image(path: str) -> np.ndarray:
@@ -249,10 +269,16 @@ def read_image(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         if f.read(8) == PNG_SIGNATURE:
             return read_png(path)
-    im = _pil_image(path)
-    if im.mode not in ("L", "RGB", "RGBA", "I;16"):
-        im = im.convert("RGB")
-    return np.asarray(im)
+    return _pil_array(_pil_image(path))
+
+
+def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """``read_image`` on encoded bytes; ``name`` names them in errors."""
+    if data[:8] == PNG_SIGNATURE:
+        return decode_png(data, name)
+    import io
+
+    return _pil_array(_pil_image(io.BytesIO(data), name))
 
 
 # ---------------------------------------------------------------------------

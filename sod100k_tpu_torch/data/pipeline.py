@@ -68,7 +68,12 @@ def _imread_rgb(path: str) -> np.ndarray:
 
 def _imread_rgb_u8(path: str) -> np.ndarray:
     """uint8 RGB HWC; 16-bit sources keep their high byte."""
-    img = read_image(path)
+    return rgb_u8(read_image(path), path)
+
+
+def rgb_u8(img: np.ndarray, path: str = "<bytes>") -> np.ndarray:
+    """A decoded image as uint8 RGB HWC (cv2's IMREAD_COLOR): 16-bit
+    samples keep their high byte, gray is repeated, alpha dropped."""
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
     elif img.dtype != np.uint8:

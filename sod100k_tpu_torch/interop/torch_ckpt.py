@@ -73,3 +73,17 @@ def load_checkpoint(path: str, map_location: str | torch.device = "cuda"
         return ck["state_dict"], {k: v for k, v in ck.items()
                                   if k != "state_dict"}
     return ck, {}
+
+
+def load_pretrained(model: torch.nn.Module, path: str) -> list[str]:
+    """Key-intersection partial load (reference utils/utils.py:6-25), the
+    JAX package's ``load_pretrained`` on a module: tensors present in both
+    the checkpoint and the model with the same shape are taken from the
+    file, every other tensor keeps the model's value. Returns the names
+    taken."""
+    loaded, _ = load_checkpoint(path, map_location="cpu")
+    current = model.state_dict()
+    take = {k: v for k, v in loaded.items()
+            if k in current and tuple(v.shape) == tuple(current[k].shape)}
+    model.load_state_dict(take, strict=False)
+    return sorted(take)

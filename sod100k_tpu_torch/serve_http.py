@@ -26,22 +26,26 @@ Endpoints:
        Content-Type: application/x-npy  — body is a .npy array (N,H,W,3) or
            (H,W,3) on the artifact's wire contract (uint8 RGB for wire="u8",
            normalized float32 otherwise); response is a .npy saliency array.
-       Content-Type: image/*            — body is an encoded image (PNG/JPEG
-           ...anything cv2 decodes); it is resized to the artifact's spatial
-           size and normalized per the wire; response is a PNG saliency map.
+       Content-Type: image/*            — body is an encoded image (PNG
+           without any library, JPEG through PIL where it is installed); it
+           is resized to the artifact's spatial size and normalized per the
+           wire; response is a PNG saliency map.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import struct
 import threading
 import time
+import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from .data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+from .data.image_io import decode_image, encode_png, resize_u8_linear
+from .data.pipeline import IMAGENET_MEAN, IMAGENET_STD, rgb_u8
 
 # request-body cap: the largest legitimate request (a full f32 bucket,
 # e.g. 128 x 336^2 x 3 f32 ~ 174 MB) fits with headroom; anything bigger
@@ -216,16 +220,18 @@ class Batcher:
 
 
 def _decode_image_request(body: bytes, model) -> np.ndarray:
-    """Encoded image -> one model-contract image (1,H,W,3)."""
-    import cv2
-
-    raw = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
-    if raw is None:
-        raise ValueError("request body is not a decodable image")
-    rgb = cv2.cvtColor(raw, cv2.COLOR_BGR2RGB)
+    """Encoded image -> one model-contract image (1,H,W,3): decoded as
+    cv2's IMREAD_COLOR in RGB, resized with cv2's uint8 INTER_LINEAR (bit
+    for bit, ``image_io.resize_u8_linear``), without cv2."""
+    try:
+        rgb = rgb_u8(decode_image(body, "request body"), "request body")
+    except (ValueError, OSError, RuntimeError, zlib.error,
+            struct.error) as e:  # OSError: PIL's unidentified image
+        raise ValueError(f"request body is not a decodable image: {e}") \
+            from None
     h, w = model.input_shape[1:3]
     if rgb.shape[:2] != (h, w):
-        rgb = cv2.resize(rgb, (w, h), interpolation=cv2.INTER_LINEAR)
+        rgb = resize_u8_linear(rgb, (h, w))
     if model.meta.get("wire", "f32") == "u8":
         return rgb[None]
     x = rgb.astype(np.float32) / 255.0
@@ -235,15 +241,10 @@ def _decode_image_request(body: bytes, model) -> np.ndarray:
 def _encode_png_saliency(sal: np.ndarray) -> bytes:
     """(H,W,1) saliency -> PNG bytes; floats use the repo-wide trunc
     quantization (data/pipeline.quantize_sigmoid_u8 semantics, host-side)."""
-    import cv2
-
     m = np.asarray(sal)[..., 0]
     if not np.issubdtype(m.dtype, np.integer):
-        m = np.trunc(m * 255.0).astype(np.uint8)
-    ok, buf = cv2.imencode(".png", m.astype(np.uint8))
-    if not ok:
-        raise RuntimeError("PNG encode failed")
-    return buf.tobytes()
+        m = np.trunc(m * 255.0)
+    return encode_png(m.astype(np.uint8))
 
 
 def make_server(model, host: str = "127.0.0.1", port: int = 0, *,

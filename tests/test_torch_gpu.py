@@ -495,3 +495,22 @@ def test_device_prefetch_on_a_side_stream(cuda):
         np.testing.assert_array_equal(g["image_u8"].cpu().numpy(),
                                       w["image_u8"])
         np.testing.assert_array_equal(g["hw"].cpu().numpy(), w["hw"])
+
+
+def test_smoke_driver_on_the_card(cuda, tmp_path):
+    """``python -m sod100k_tpu_torch.cli.smoke --dry-data``: train ->
+    prune+finetune -> test -> eval -> resident sweep on a synthetic tree,
+    on the card, as a user runs it."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "sod100k_tpu_torch.cli.smoke", "--dry-data",
+         "--save-dir", str(tmp_path / "save"), "--train-epochs", "1"],
+        cwd=repo, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": repo,
+             "TMPDIR": str(tmp_path)})
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    assert "[smoke] OK" in out.stdout
