@@ -6,7 +6,8 @@ Drives CSNet-L (``init_layers(40, [0.5, 0.5])``, full width, 224^2, seeded
 random weights with calibrated BN statistics) through the port's serving
 entry points, with every ILBlock depthwise tail on the hand-written CUDA
 kernel (csrc/dw_chain.cu), then its training, pruning and dataset paths,
-then CSF+Res2Net-50/101 at 336^2. Phases; any failure exits non-zero:
+then CSF+Res2Net-50/101 at 336^2, the drivers and the native SalMetric.
+Phases; any failure exits non-zero:
 
 1. build the kernel with nvcc (sm_90a) and print the card's name and
    power limit;
@@ -139,7 +140,29 @@ then CSF+Res2Net-50/101 at 336^2. Phases; any failure exits non-zero:
    one PNG of the split (decoded, resized and encoded without cv2; the PNG
    map within one level of the .npy answer for the same resized image);
    times (not gated): the driver's epoch against phase 8b's f32 step,
-   test, eval and sweep img/s, and the phase's wall time.
+   test, eval and sweep img/s, and the phase's wall time;
+12. the CSF driver (``python -m sod100k_tpu_torch.cli.csf``) at
+   Res2Net-50's full width over synthetic PNG pairs at 300x400 with .lst
+   files, from seeded He-scale checkpoints (no download is tried), and the
+   native SalMetric on its dumps, counting ``fused_dw_chain`` launches
+   over the in-process stages (``csf_cli_launches``, 0: the CSF path has
+   no depthwise tail):
+12a. ``--mode train`` in a subprocess, twice: the recipe's native-size
+   protocol (``--image_size 0 --batch_size 1 --iter_size 10``, 20 pairs:
+   two optimizer steps) and ``--image_size 336 --batch_size 8 --iter_size
+   2 --dtype bfloat16 --preprocess resident`` (32 pairs): exit 0,
+   final.pth, finite losses;
+12b. ``run_csf_test`` on the card from 12a's f32 final.pth over 16 images
+   (same-shape runs of 10, 4 and 2): ``--test_batch 4`` within one level
+   of B=1, the f32 maps of 4 images within one level of the same driver
+   on the CPU, one ``--arch res2net101`` run on 4 images;
+12c. the native SalMetric (``csrc/salmetric.cc``, built with the host
+   compiler) on 12b's dumps: within abs 1e-5 of the device backend on the
+   card, its CLI's stdout equal to ``do_evaluation``'s report, and
+   ``cli.eval --dirs --backend native --suite full``;
+12d. times (not gated): each subprocess's wall time and its epoch's
+   micro-step time beside phase 10f's bare B=8 micro-step, the test
+   driver's FPS, native vs device scoring img/s, the phase's wall time.
 
 Needs torch with CUDA and nvcc; no jax, cv2, PIL or yaml. The second line from
 the end is a JSON summary of the kernels; the last line is the run's JSON
@@ -1721,9 +1744,10 @@ def say_kernels(kernels, dev: float, reps: int, top: int, unit: str) -> None:
             f"{e.key[:110]}")
 
 
-def phase_csf_times(model_cpu: CSFNet, epoch: dict, gpu: str) -> None:
+def phase_csf_times(model_cpu: CSFNet, epoch: dict, gpu: str) -> float:
     """10f (not gated): the B=32 bf16 eval forward at 336^2 of both
-    backbones, the B=1 latency, the B=8 bf16 micro-step, the epoch."""
+    backbones, the B=1 latency, the B=8 bf16 micro-step, the epoch.
+    Returns the micro-step's median ms."""
     for backbone in ("res2net50", "res2net101"):
         model = (csf_on(model_cpu, "cuda") if backbone == "res2net50"
                  else CSFNet(backbone, seed=0, device="cuda"))
@@ -1789,6 +1813,7 @@ def phase_csf_times(model_cpu: CSFNet, epoch: dict, gpu: str) -> None:
     say(f"  resize (32, 1408, 42, 42) -> 84^2 bf16: NCHW {nchw:.3f} ms, "
         f"channels-last {nhwc:.3f} ms, with both layout changes "
         f"{both:.3f} ms (CUDA events, 10 calls); max |d| {d:.1e}  [{gpu}]")
+    return med
 
 
 # --variants: A/B of the kernel's plan sizes (module constants of
@@ -2267,6 +2292,329 @@ def phase_drivers(gpu: str, step_times: dict) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The CSF driver and the native SalMetric (phase 12)
+
+CSF_CLI_PAIRS = 32        # the resident run's split; the native run's first 20
+CSF_CLI_NATIVE_PAIRS = 20  # B=1, iter_size 10: two optimizer steps
+# the test split's shapes in list order: same-shape runs of 10, 4 and 2,
+# so --test_batch 4 meets full batches, shape breaks and padded partials
+CSF_CLI_TEST_HW = [(300, 400)] * 10 + [(400, 300)] * 4 + [(300, 400)] * 2
+CSF_CLI_PARITY = 4
+CSF_CLI_TB = 4
+NATIVE_THREADS = 4
+
+
+def he_scale(model: CSFNet, seed: int) -> CSFNet:
+    """``model`` with He-scale backbone convs (N(0, 2/fan_in)) and BN
+    statistics and affines that keep the activations' scale, the draws of
+    ``tests/test_torch_csf.py::he_scale_state``: at the reference init the
+    backbone's signal vanishes and the map is nearly constant."""
+    rng = np.random.default_rng(seed)
+    state = model.state_dict()
+    with torch.no_grad():
+        for k, v in state.items():
+            shape = tuple(v.shape)
+            if not k.startswith("base.") or k.endswith("num_batches_tracked"):
+                continue
+            if v.dim() == 4:
+                a = rng.standard_normal(shape) * np.sqrt(
+                    2.0 / np.prod(shape[1:]))
+            elif k.endswith("running_var"):
+                a = rng.uniform(0.5, 1.5, shape)
+            elif k.endswith("running_mean"):
+                a = rng.standard_normal(shape) * 0.1
+            elif k.endswith(".weight"):
+                lo, hi = ((0.1, 0.3) if ".bn3." in k or ".downsample." in k
+                          else (0.5, 1.0))
+                a = rng.uniform(lo, hi, shape)
+            else:
+                a = rng.standard_normal(shape) * 0.1
+            v.copy_(torch.from_numpy(a.astype(np.float32)))
+    return model
+
+
+def csf_cli_tree(root: str) -> dict:
+    """The driver's files: a training split of PNG pairs at 300x400
+    (alternating orientation) with .lst files of its first 20 and all 32
+    pairs, a 16-image test split with its GTs and .lst files, and seeded
+    He-scale checkpoints of both backbones."""
+    make_synth_split(os.path.join(root, "train"), CSF_CLI_PAIRS,
+                     hw=SPLIT_HW, seed=12)
+    names = sorted(os.listdir(os.path.join(root, "train", "images")))
+    lists = {}
+    for n in (CSF_CLI_NATIVE_PAIRS, CSF_CLI_PAIRS):
+        lists[n] = os.path.join(root, f"train{n}.lst")
+        with open(lists[n], "w") as f:
+            f.writelines(f"images/{m} GT/{m}\n" for m in names[:n])
+    test = os.path.join(root, "test")
+    for sub in ("images", "GT"):
+        os.makedirs(os.path.join(test, sub))
+    pairs = synth_pairs(len(CSF_CLI_TEST_HW), hw=SPLIT_HW,
+                        alternate_orientation=False, seed=13)
+    for i, ((img, gt), hw) in enumerate(zip(pairs, CSF_CLI_TEST_HW)):
+        if hw != SPLIT_HW:
+            img, gt = img.transpose(1, 0, 2).copy(), gt.T.copy()
+        write_png(os.path.join(test, "images", f"t{i:02d}.png"), img)
+        write_png(os.path.join(test, "GT", f"t{i:02d}.png"), gt)
+    test_names = [f"images/t{i:02d}.png" for i in range(len(CSF_CLI_TEST_HW))]
+    for name, sel in (("test.lst", test_names),
+                      ("parity.lst", test_names[:CSF_CLI_PARITY])):
+        with open(os.path.join(test, name), "w") as f:
+            f.writelines(f"{n}\n" for n in sel)
+    ckpts = {}
+    for backbone in ("res2net50", "res2net101"):
+        ckpts[backbone] = os.path.join(root, f"{backbone}_he.pth")
+        save_checkpoint(ckpts[backbone], he_scale(
+            CSFNet(backbone, seed=0, device="cpu"), 24), None, epoch=0,
+            arch=f"csf_{backbone}")
+    return {"lists": lists, "test": test, "ckpts": ckpts}
+
+
+def phase_csf_cli_train(root: str, tree: dict) -> dict:
+    """12a: ``python -m sod100k_tpu_torch.cli.csf --mode train`` twice, from
+    --load of the seeded checkpoint (no download is tried): the recipe's
+    native-size protocol (B=1, iter_size 10, 20 pairs: two optimizer
+    steps), then B=8 at 336^2 in bf16 from the resident store (iter_size 2,
+    32 pairs: four micro-steps)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    runs = {
+        "native": ["--image_size", "0", "--batch_size", "1", "--iter_size",
+                   "10", "--train_list", tree["lists"][CSF_CLI_NATIVE_PAIRS],
+                   "--show_every", "5"],
+        "resident": ["--image_size", "336", "--batch_size", "8",
+                     "--iter_size", "2", "--dtype", "bfloat16",
+                     "--preprocess", "resident", "--train_list",
+                     tree["lists"][CSF_CLI_PAIRS], "--show_every", "8"],
+    }
+    out = {}
+    for name, args in runs.items():
+        folder = os.path.join(root, f"results_{name}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sod100k_tpu_torch.cli.csf", "--mode",
+             "train", "--train_root", os.path.join(root, "train"), "--load",
+             tree["ckpts"]["res2net50"], "--epoch", "1", "--epoch_save", "1",
+             "--save_folder", folder, *args], cwd=repo, capture_output=True,
+            text=True, timeout=600, env={**os.environ, "PYTHONPATH": repo})
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            say(proc.stdout[-3000:] + proc.stderr[-3000:])
+        check(proc.returncode == 0, f"cli.csf train ({name}) exit code "
+              f"{proc.returncode}")
+        losses = [float(v) for v in re.findall(r"\|\| Sal : (\S+)",
+                                               proc.stdout)]
+        final = os.path.join(folder, "run-0", "models", "final.pth")
+        check(losses and np.isfinite(losses).all(),
+              f"cli.csf train ({name}): finite losses {losses}")
+        check(os.path.isfile(final), f"cli.csf train ({name}) final.pth")
+        m = re.search(r"epoch 0 time: (\S+)s \((\d+) micro-steps, (\S+) "
+                      r"img/s\)", proc.stdout)
+        check(m is not None, f"cli.csf train ({name}) epoch time line")
+        out[name] = {"wall_s": wall, "final": final, "losses": losses,
+                     "epoch_s": float(m.group(1)), "micro": int(m.group(2)),
+                     "img_s": float(m.group(3))}
+        for line in proc.stdout.splitlines():
+            if line.startswith(("The number", "resident", "mixed")):
+                say(f"  | {line}")
+        say(f"  {name}: {len(losses)} loss lines "
+            f"{' '.join(f'{v:.4f}' for v in losses)}; final.pth written")
+    return out
+
+
+def _csf_test(tree: dict, fold: str, device: str, lst: str, *args) -> tuple:
+    """``run_csf_test`` on the card or the CPU over the test split's list
+    ``lst``, as the parser reads ``args``; returns (its result, the maps
+    written, the FPS line)."""
+    from sod100k_tpu_torch.cli import csf as ccsf
+
+    cfg = ccsf.build_parser().parse_args(["--mode", "test", "--test_fold",
+                                          fold, *args])
+    cfg.test_root = tree["test"]
+    cfg.test_list = os.path.join(tree["test"], lst)
+    lines = []
+    res = ccsf.run_csf_test(cfg, log=lines.append, device=device)
+    check(lines[-1] == "Test Done!" and lines[0].startswith("Speed: "),
+          f"the test driver's last lines {lines}")
+    return res, _driver_maps(fold), lines[0]
+
+
+def _levels(got: dict, want: dict, what: str) -> int:
+    check(got.keys() == want.keys(), f"{what}: the same map names")
+    check(all(got[n].shape == want[n].shape for n in got),
+          f"{what}: the same map shapes")
+    return max(int(np.abs(got[n].astype(int) - want[n].astype(int)).max())
+               for n in got)
+
+
+def phase_csf_cli_test(root: str, tree: dict, final: str, gpu: str) -> dict:
+    """12b: ``run_csf_test`` on the card from 12a's f32 final.pth: 16
+    images at B=1 and at --test_batch 4 (within one level), 4 of them
+    against the CPU (f32, within one level), and a Res2Net-101 run."""
+    res, b1, fps_line = _csf_test(tree, os.path.join(root, "b1"), "cuda",
+                                  "test.lst", "--model", final)
+    n = len(CSF_CLI_TEST_HW)
+    check(res["n"] == n and sorted(b1) == [f"t{i:02d}_sal_fuse.png"
+                                           for i in range(n)],
+          "a map per test image")
+    check(all(b1[f"t{i:02d}_sal_fuse.png"].shape == hw
+              for i, hw in enumerate(CSF_CLI_TEST_HW)), "maps at native size")
+    check(all(m.std() > 0 for m in b1.values()), "maps are not constant")
+    res4, b4, _ = _csf_test(tree, os.path.join(root, "b4"), "cuda",
+                            "test.lst", "--model", final, "--test_batch",
+                            str(CSF_CLI_TB))
+    d_tb = _levels(b4, b1, "--test_batch 4")
+    check(d_tb <= 1, f"--test_batch 4 maps {d_tb} levels from B=1 (bar 1)")
+    say(f"  {n} images at B=1: {fps_line}; --test_batch {CSF_CLI_TB}: "
+        f"{res4['fps']:.2f} FPS, {d_tb} level(s) from B=1  [{gpu}]")
+    par = {}
+    for dev in ("cuda", "cpu"):
+        par[dev] = _csf_test(tree, os.path.join(root, f"parity_{dev}"), dev,
+                             "parity.lst", "--model", final)[1]
+    d_cpu = _levels(par["cuda"], par["cpu"], "card vs CPU")
+    check(d_cpu <= 1, f"card maps {d_cpu} levels from the CPU's (bar 1)")
+    say(f"  f32 maps, card vs CPU, {CSF_CLI_PARITY} images: {d_cpu} "
+        f"level(s) apart")
+    r101, maps101, fps101 = _csf_test(
+        tree, os.path.join(root, "r101"), "cuda", "parity.lst", "--arch",
+        "res2net101", "--model", tree["ckpts"]["res2net101"])
+    check(len(maps101) == CSF_CLI_PARITY and all(
+        m.dtype == np.uint8 and m.std() > 0 for m in maps101.values()),
+        "Res2Net-101 maps")
+    say(f"  res2net101, {CSF_CLI_PARITY} images: {fps101}  [{gpu}]")
+    return {"fps": res["fps"], "fps_tb": res4["fps"],
+            "sal_dir": os.path.join(root, "b1")}
+
+
+def _best_rate(fn, n: int, reps: int = 3) -> float:
+    """Images per second of the fastest of ``reps`` calls (host clock; a
+    device call ends in a synchronize)."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return n / best
+
+
+def phase_native_metric(root: str, tree: dict, sal_dir: str,
+                        gpu: str) -> dict:
+    """12c: the native SalMetric, built with the host compiler here, on
+    12b's dumps: against the device backend on the card (abs 1e-5), its
+    CLI against do_evaluation's dict, and ``cli.eval --dirs --backend
+    native --suite full``."""
+    import contextlib
+
+    from sod100k_tpu_torch.cli import eval as ceval
+    from sod100k_tpu_torch.metrics import native
+
+    t0 = time.perf_counter()
+    lib = cuda_lib.build_host("salmetric")
+    build_s = time.perf_counter() - t0
+    cxx = subprocess.run([cuda_lib.HOST_CXX, "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    say(f"  built {lib} with {cuda_lib.HOST_CXX} ({cxx}) in {build_s:.1f} s")
+    gt_dir = os.path.join(tree["test"], "GT")
+    pairs = ceval._pairs(sal_dir, gt_dir, sal_suffix="_sal_fuse", log=quiet)
+    n = len(CSF_CLI_TEST_HW)
+    check(len(pairs) == n, f"{len(pairs)} sal/GT pairs")
+    nat = ceval.evaluate_pairs_native(pairs, NATIVE_THREADS)
+    dev = ceval.evaluate_pairs_device(pairs, log=quiet, device="cuda")
+    check(nat["images"] == n, "native: every pair scored")
+    worst = max(float(np.abs(np.asarray(nat[k]) - np.asarray(dev[k])).max())
+                for k in ("mae", "max_f", "mean_f", "mean_precision",
+                          "mean_recall", "precision", "recall", "fmeasure"))
+    check(worst <= 1e-5, f"native vs device {worst:.2e} (bar 1e-5)")
+    say(f"  native vs device backend on the card: MAE {nat['mae']:.6f}, "
+        f"MaxF {nat['max_f']:.6f}; at most {worst:.2e} apart (bar 1e-5)")
+
+    lst = os.path.join(root, "pairs.txt")
+    with open(lst, "w") as f:
+        f.writelines(f"{s} {g}\n" for s, g in pairs)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "sod100k_tpu_torch.metrics.native", lst,
+         str(NATIVE_THREADS)], capture_output=True, text=True, timeout=300,
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo})
+    if proc.returncode:
+        say(proc.stdout[-3000:] + proc.stderr[-3000:])
+    check(proc.returncode == 0, f"metrics.native CLI exit {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    want = [f"{NATIVE_THREADS} threads are being used for accelerating.",
+            *salmetric.format_report(nat).splitlines()]
+    num = r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?"
+    same = len(lines) == len(want) == 1 + 256 + 7 and all(
+        re.sub(num, "#", a) == re.sub(num, "#", b) and np.allclose(
+            [float(v) for v in re.findall(num, a)],
+            [float(v) for v in re.findall(num, b)], rtol=1e-5, atol=0)
+        for a, b in zip(lines, want))
+    check(same, "the CLI's stdout is do_evaluation's report")
+    say(f"  python -m sod100k_tpu_torch.metrics.native: {len(lines)} lines, "
+        f"the dict's report (6 significant digits)")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ceval.main(["--dirs", sal_dir, gt_dir, "--sal-suffix", "_sal_fuse",
+                    "--backend", "native", "--suite", "full"])
+    report = buf.getvalue().strip().splitlines()[-1]
+    check(" wF " in report and " S " in report and f"({n} pairs)" in report,
+          f"cli.eval --backend native --suite full: {report}")
+    say(f"  cli.eval --dirs --backend native --suite full: {report}")
+
+    rates = {
+        "native": _best_rate(lambda: ceval.evaluate_pairs_native(
+            pairs, NATIVE_THREADS), n),
+        "device": _best_rate(lambda: ceval.evaluate_pairs_device(
+            pairs, log=quiet, device="cuda"), n),
+        "device_reference": _best_rate(lambda: ceval.evaluate_pairs_device(
+            pairs, with_smeasure=False, log=quiet, device="cuda"), n),
+    }
+    say(f"  scoring {n} pairs at 300x400 (decode included, best of 3): "
+        f"native ({NATIVE_THREADS} threads) {rates['native']:.1f} img/s, "
+        f"device {rates['device']:.1f} img/s (with S), "
+        f"{rates['device_reference']:.1f} img/s (reference block)  [{gpu}]")
+    return rates
+
+
+def phase_csf_cli(gpu: str, step_ms: float) -> int:
+    """Phase 12: the CSF driver as a user runs it, at Res2Net-50's full
+    width (one Res2Net-101 test run), then the native SalMetric on its
+    dumps. Returns the fused_dw_chain launches of the in-process stages
+    (the CSF path has no depthwise tail: 0)."""
+    t12 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        tree = csf_cli_tree(root)
+        say("12a: python -m sod100k_tpu_torch.cli.csf --mode train")
+        train = phase_csf_cli_train(root, tree)
+        torch.cuda.synchronize()
+        dw_chain.launches = 0
+        say("12b: run_csf_test on the card")
+        test = phase_csf_cli_test(root, tree, train["native"]["final"], gpu)
+        say("12c: the native SalMetric on the dumps")
+        rates = phase_native_metric(root, tree, test["sal_dir"], gpu)
+        torch.cuda.synchronize()
+        launches = dw_chain.launches
+    say("12d: times (not gated)")
+    for name, r in train.items():
+        say(f"  cli.csf train ({name}): {r['wall_s']:.1f} s of wall time "
+            f"(process start, model build, checkpoint load and save "
+            f"included); its epoch {r['epoch_s']:.2f} s for {r['micro']} "
+            f"micro-steps, {r['epoch_s'] / r['micro'] * 1e3:.1f} ms a "
+            f"micro-step, {r['img_s']:.1f} img/s (first calls included)  "
+            f"[{gpu}]")
+    say(f"  phase 10f's bare B={CSF_BATCH} bf16 micro-step at 336^2: "
+        f"{step_ms:.3f} ms, {CSF_BATCH / step_ms * 1e3:.1f} img/s  [{gpu}]")
+    say(f"  test driver: {test['fps']:.2f} FPS at B=1, {test['fps_tb']:.2f} "
+        f"FPS at --test_batch {CSF_CLI_TB} (PNG writes and first calls "
+        f"included); scoring: native {rates['native']:.1f} img/s, device "
+        f"{rates['device']:.1f} img/s  [{gpu}]")
+    check(launches == 0, "the CSF driver stages launch no fused_dw_chain")
+    say(f"  phase 12 took {time.perf_counter() - t12:.1f} s; {launches} "
+        f"fused_dw_chain launches in its in-process stages  [{gpu}]")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -2379,7 +2727,7 @@ def main() -> None:
     say("10e: a .lst split through padded_batches into a masked step")
     phase_csf_lst(r50)
     say("10f: times (not gated)")
-    phase_csf_times(r50, csf_epoch, gpu)
+    csf_step_ms = phase_csf_times(r50, csf_epoch, gpu)
     torch.cuda.synchronize()
     csf_launches = dw_chain.launches
     say(f"  phase 10 took {time.perf_counter() - t10:.1f} s; "
@@ -2390,6 +2738,10 @@ def main() -> None:
     say("phase 11: the drivers (python -m sod100k_tpu_torch.cli.*) on "
         "CSNet-L, B=24 at 224^2")
     cli_launches = phase_drivers(gpu, train_step)
+
+    say("phase 12: the CSF driver (python -m sod100k_tpu_torch.cli.csf) "
+        "and the native SalMetric")
+    csf_cli_launches = phase_csf_cli(gpu, csf_step_ms)
 
     print(json.dumps({"kernels": [{
         "name": "fused_dw_chain", "route": "cuda",
@@ -2406,7 +2758,8 @@ def main() -> None:
         "host_us": tot["host"], "train_eval_launches": train_launches,
         "sweep_launches": sweep_launches,
         "slim_launches": slim_launches, "csf_launches": csf_launches,
-        "cli_launches": cli_launches}]}))
+        "cli_launches": cli_launches,
+        "csf_cli_launches": csf_cli_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -22,12 +22,14 @@ Module names reproduce the reference's state_dict keys
 parameters (through ``interop.torch_ckpt``) and reference checkpoints load
 with ``strict=True``. res2net50 and res2net101 differ only in the stage
 depths. The model builds on the card unless the caller names another
-device.
+device. ``fetch_res2net_weights`` downloads the published ImageNet
+backbones (``sod100k_tpu/arch/csf_res2net.py:246-293``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -202,6 +204,60 @@ class CSFNet(nn.Module):
         y = self.fuse1x1(self.ms(self.fuse(feats)))
         logits = conv2d(y[0], self.cls_layer.weight, self.cls_layer.bias)
         return resize_bilinear(logits, x.shape[1:3]).permute(0, 2, 3, 1)
+
+
+# Published ImageNet weights (reference csf_res2net.py:15-18). The filename
+# suffix is the torch-hub convention: first 8 hex chars of the file's sha256.
+RES2NET_URLS = {
+    "res2net50": "https://shanghuagao.oss-cn-beijing.aliyuncs.com/res2net/"
+                 "res2net50_v1b_26w_4s-3cf99910.pth",
+    "res2net101": "https://shanghuagao.oss-cn-beijing.aliyuncs.com/res2net/"
+                  "res2net101_v1b_26w_4s-0812c246.pth",
+}
+
+
+def fetch_res2net_weights(backbone: str = "res2net50",
+                          cache_dir: str | None = None,
+                          timeout: float = 60.0) -> str | None:
+    """Download (once) the published ImageNet checkpoint for ``backbone``
+    into ``cache_dir`` (``~/.cache/sod100k_tpu_torch``) and return its
+    path. The torch-hub sha256 prefix in the filename is checked: a
+    mismatch raises ``ValueError``. The download goes to a ``.part`` file
+    renamed only when whole and verified. Returns None when the network is
+    unreachable (the reference's download is optional,
+    csf_res2net.py:143-144; the caller trains from the seeded init)."""
+    import hashlib
+    import urllib.error
+    import urllib.request
+
+    url = RES2NET_URLS[backbone]
+    fname = url.rsplit("/", 1)[1]
+    want_prefix = fname.rsplit("-", 1)[1].split(".")[0]
+    cache_dir = cache_dir or os.path.join(
+        os.path.expanduser("~"), ".cache", "sod100k_tpu_torch")
+    path = os.path.join(cache_dir, fname)
+    if os.path.isfile(path):
+        return path
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = path + ".part"
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r, \
+                open(tmp, "wb") as f:
+            h = hashlib.sha256()
+            while chunk := r.read(1 << 20):
+                h.update(chunk)
+                f.write(chunk)
+        if not h.hexdigest().startswith(want_prefix):
+            os.remove(tmp)
+            raise ValueError(
+                f"checksum mismatch for {fname}: got {h.hexdigest()[:8]}, "
+                f"want {want_prefix}")
+        os.replace(tmp, path)
+        return path
+    except (urllib.error.URLError, OSError, TimeoutError):
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        return None
 
 
 def load_res2net_backbone(model: CSFNet, torch_path: str):

@@ -7,13 +7,18 @@ Usage: python -m sod100k_tpu_torch.cli.eval --config <yml> [--method task]
 
 For each dataset and epoch: pair saliency PNGs (DATA.SAVEDIR/task/{ds}_{e})
 with GTs (TEST.DATASET_PATH/{ds}/GT), evaluate MAE / 256-threshold P/R /
-F-beta (+ adaptive F, E-measure and S-measure) on the card
-(``metrics/salmetric.py``, ``metrics/smeasure.py``; weighted F on the
-host), log per-epoch reports, and track the best epoch by Max-F (reference
-eval.py:34-76). The files written (FmeasureResults_{ds}.txt,
+F-beta, log per-epoch reports, and track the best epoch by Max-F
+(reference eval.py:34-76). The files written (FmeasureResults_{ds}.txt,
 FmeasureResult_{ds}_{e}.txt, val_{ds}_{e}.txt) have the JAX driver's names
-and formats. The JAX package's "native" backend (the C++ SalMetric) is not
-in this package yet.
+and formats.
+
+Backends:
+- "device" (default): batched reductions on the card
+  (``metrics/salmetric.py``, ``metrics/smeasure.py``; weighted F on the
+  host), with adaptive F, E-measure and S-measure;
+- "native": the reference SalMetric's C++ core on the host
+  (``metrics/native.py``), the reference block only (MAE, P/R/F); with
+  ``--suite full`` the device backend fills in the rest.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 from ..config import get_cfg
 from ..data.csf_dataset import bucket_hw
 from ..data.image_io import image_size
-from ..data.pipeline import _imread_gray_u8, require_device
+from ..data.pipeline import imread_gray_u8_or_none, require_device
+from ..metrics.native import do_evaluation, fmeasure_curve
 from ..metrics.salmetric import (SalMetricAccumulator, as_device_tensor,
                                  format_report)
 
@@ -71,13 +77,6 @@ def _size(path: str):
         return None
 
 
-def _gray(path: str):
-    try:
-        return _imread_gray_u8(path)
-    except (OSError, ValueError, RuntimeError):
-        return None
-
-
 def evaluate_pairs_device(pairs, batch: int = 32, with_smeasure: bool = True,
                           with_wfmeasure: bool = False, log=print, *,
                           device: str | torch.device = "cuda") -> dict:
@@ -112,7 +111,8 @@ def evaluate_pairs_device(pairs, batch: int = 32, with_smeasure: bool = True,
             m = np.zeros((batch, bh, bw), np.float32)
             skipped = 0
             for j, (sp, gp) in enumerate(chunk):
-                sal, gt = _gray(sp), _gray(gp)
+                sal = imread_gray_u8_or_none(sp)
+                gt = imread_gray_u8_or_none(gp)
                 if sal is None or gt is None or sal.shape != gt.shape:
                     log(f"eval: skipping undecodable pair {sp}")
                     skipped += 1
@@ -150,14 +150,48 @@ def evaluate_pairs_device(pairs, batch: int = 32, with_smeasure: bool = True,
     return res
 
 
-def _check_backend(backend: str) -> None:
-    if backend == "native":
-        raise SystemExit(
-            "--backend native (the C++ SalMetric tool) is not in "
-            "sod100k_tpu_torch yet (ROADMAP.md, Queue A item 4: SalMetric "
-            "without OpenCV); use --backend device")
+def evaluate_pairs_native(pairs, num_threads: int = 8) -> dict:
+    """The reference block on the host library, with the 256-threshold F
+    curve derived from its P/R so that the FmeasureResult file carries the
+    full reference report on this backend too."""
+    res = do_evaluation(num_threads, [p[0] for p in pairs],
+                        [p[1] for p in pairs], print_stdout=False)
+    res["fmeasure"] = fmeasure_curve(res)
+    return res
+
+
+def _fill_full_native(res: dict, pairs, log, device) -> None:
+    """--suite full on the native backend: the C++ core computes the
+    reference block only; the device backend (on ``device``) adds the
+    modern metrics and the host weighted F. Where no pair decodes, the
+    native result (its divisor semantics) stands alone."""
+    if not res["images"]:
+        log("eval: full-suite fill skipped: no decodable pairs for the "
+            "modern metrics")
+        return
+    extra = evaluate_pairs_device(pairs, with_wfmeasure=True, log=log,
+                                  device=device)
+    for key in ("adaptive_f", "adaptive_e", "emeasure", "max_e", "mean_e",
+                "s_measure", "weighted_f"):
+        res[key] = extra[key]
+
+
+def _evaluate(pairs, backend: str, full: bool, wfmeasure: bool, log,
+              device) -> dict:
+    """Score ``pairs`` on ``backend``; refuses an explicitly requested
+    weighted F that the native backend would not compute."""
     if backend not in BACKENDS:
         raise SystemExit(f"--backend must be device|native, got {backend!r}")
+    if backend == "device":
+        return evaluate_pairs_device(pairs, with_wfmeasure=wfmeasure or full,
+                                     log=log, device=device)
+    if wfmeasure and not full:
+        raise SystemExit("--wfmeasure is not computed by the native "
+                         "backend; use --backend device or --suite full")
+    res = evaluate_pairs_native(pairs)
+    if full:
+        _fill_full_native(res, pairs, log, device)
+    return res
 
 
 def _report_line(prefix: str, res: dict, full: bool) -> str:
@@ -184,14 +218,12 @@ def run_eval_dirs(sal_dir: str, gt_dir: str, *, backend: str = "device",
     """Layout-free evaluation: score any saliency-dump directory against
     any GT directory (--dirs); --sal-suffix pairs suffixed names (cli.csf
     test-mode `*_sal_fuse.png` dumps)."""
-    _check_backend(backend)
     full = suite == "full"
     pairs = _pairs(sal_dir, gt_dir, sal_suffix=sal_suffix, log=log)
     if not pairs:
         raise SystemExit(f"no sal/GT pairs between {sal_dir} and {gt_dir} "
                          f"(sal_suffix={sal_suffix!r})")
-    res = evaluate_pairs_device(pairs, with_wfmeasure=wfmeasure or full,
-                                log=log, device=device)
+    res = _evaluate(pairs, backend, full, wfmeasure, log, device)
     log(_report_line(f"{os.path.basename(os.path.normpath(sal_dir))} "
                      f"({len(pairs)} pairs)", res, full))
     return res
@@ -204,14 +236,14 @@ def run_eval(cfg, epoch_range=(0, 1), method: str | None = None,
     """suite="reference" (default): MaxF/MAE/MeanF plus the device
     backend's extras (adaptive F, E, S), wF only behind ``wfmeasure``.
     suite="full": the whole modern suite from one invocation (MAE,
-    max/mean/adaptive F, max/mean/adaptive E, S, wF). The per-epoch
-    FmeasureResult file keeps the 7-line reference contract
+    max/mean/adaptive F, max/mean/adaptive E, S, wF) on either backend.
+    The per-epoch FmeasureResult file keeps the 7-line reference contract
     (``format_report``)."""
     if suite not in ("reference", "full"):
         raise SystemExit(f"--suite must be reference|full, got {suite}")
     full = suite == "full"
     method = method or cfg.TASK or cfg.MODEL.ARCH
-    _check_backend(backend or cfg.CUDA.EVAL_BACKEND)
+    backend = backend or cfg.CUDA.EVAL_BACKEND
     datasets = datasets or cfg.TEST.DATASETS
     out_dir = os.path.join(cfg.DATA.SAVEDIR, method)
     os.makedirs(out_dir, exist_ok=True)
@@ -233,9 +265,8 @@ def run_eval(cfg, epoch_range=(0, 1), method: str | None = None,
                 with open(os.path.join(out_dir, f"val_{ds}_{epoch}.txt"),
                           "w") as plist:
                     plist.writelines(f"{sp} {gp}\n" for sp, gp in pairs)
-                res = evaluate_pairs_device(
-                    pairs, with_wfmeasure=wfmeasure or full, log=log,
-                    device=device)
+                res = _evaluate(pairs, backend, full, wfmeasure, log,
+                                device)
                 report = _report_line(f"epoch {epoch} {ds}", res, full)
                 log(report)
                 flog.write(report + "\n")
@@ -264,15 +295,17 @@ def main(argv=None) -> None:
     parser.add_argument("--range", default="0,1",
                         help="epoch range begin,end (python range semantics)")
     parser.add_argument("--backend", default=None, choices=list(BACKENDS),
-                        help="device (default); native is not ported yet")
+                        help="device (default) or native (the C++ "
+                        "SalMetric core on the host)")
     parser.add_argument("--wfmeasure", action="store_true",
                         help="also report the weighted F-measure (Margolin "
-                        "CVPR'14, on the host)")
+                        "CVPR'14, on the host; device backend or --suite "
+                        "full)")
     parser.add_argument("--suite", default="reference",
                         choices=["reference", "full"],
                         help="'full' reports the whole modern suite from "
                         "one invocation (MAE, max/mean/adaptive F and E, "
-                        "S-measure, weighted F)")
+                        "S-measure, weighted F) on either backend")
     args = parser.parse_args(argv)
     if args.dirs:
         run_eval_dirs(args.dirs[0], args.dirs[1],

@@ -114,7 +114,7 @@ _C.FINETUNE.SOLVER.LR_SCHEDULER = "step"
 # --- backend choices (absent from reference YAMLs; defaults apply) ---------
 _C.CUDA = CN()
 _C.CUDA.DTYPE = "float32"          # "bfloat16" for the fast inference path
-_C.CUDA.EVAL_BACKEND = "device"    # "device" (the card); "native" not ported
+_C.CUDA.EVAL_BACKEND = "device"    # "device" (the card) | "native" (host C++)
 _C.CUDA.SEED = 0
 # the reference exempts conv1x1/conv3x3_1 BN gammas from weight decay but
 # (apparently by typo) not conv3x3_2's (train.py:102-104); True reproduces

@@ -19,6 +19,7 @@ import math
 import os
 import queue
 import threading
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
@@ -98,6 +99,21 @@ def _imread_gray_u8(path: str) -> np.ndarray:
             img = ((rgb[..., 0] * 9798 + rgb[..., 1] * 19235
                     + rgb[..., 2] * 3735) >> 15).astype(np.uint8)
     return np.ascontiguousarray(img)
+
+
+# what reading an image file can raise: a missing or unreadable file, a
+# malformed PNG, a corrupt zlib stream, a non-PNG without PIL (or one PIL
+# cannot identify, an OSError)
+_DECODE_ERRORS = (OSError, ValueError, RuntimeError, zlib.error)
+
+
+def imread_gray_u8_or_none(path: str) -> np.ndarray | None:
+    """``_imread_gray_u8``, or None when the file cannot be read or
+    decoded (cv2.imread's empty result, which the metric tools skip)."""
+    try:
+        return _imread_gray_u8(path)
+    except _DECODE_ERRORS:
+        return None
 
 
 def resize_bilinear_np(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:

@@ -148,8 +148,10 @@ def test_eval_matches_the_jax_driver_on_the_same_maps(run):
 
 def test_eval_dirs_and_the_native_backend(run, tmp_path):
     """--dirs scores a folder, --sal-suffix pairs suffixed dumps and counts
-    the files without the suffix in one log line; the native backend is
-    refused, never replaced by the device one."""
+    the files without the suffix in one log line; the native backend
+    scores the same maps as the device one (the JAX package's 1e-5 bar
+    between backends), in --dirs, per epoch and from main(), and refuses
+    --wfmeasure outside --suite full."""
     gt_dir = os.path.join(run["root"], "ECSSD", "GT")
     sal = tmp_path / "sal"
     sal.mkdir()
@@ -172,13 +174,23 @@ def test_eval_dirs_and_the_native_backend(run, tmp_path):
     want = ceval.run_eval(run["cfg"], epoch_range=(1, 2), log=_Log(),
                           device="cpu", method="port")
     assert res["max_f"] == pytest.approx(want["ECSSD"]["max_f"], abs=1e-12)
-    with pytest.raises(SystemExit, match="Queue A item 4"):
-        ceval.run_eval_dirs(run["sal_dir"], gt_dir, backend="native",
-                            device="cpu")
-    with pytest.raises(SystemExit, match="Queue A item 4"):
-        ceval.run_eval(cfg, backend="native", device="cpu")
-    with pytest.raises(SystemExit, match="Queue A item 4"):
-        ceval.main(["--dirs", run["sal_dir"], gt_dir, "--backend", "native"])
+    nat = ceval.run_eval_dirs(run["sal_dir"], gt_dir, backend="native",
+                              log=_Log(), device="cpu")
+    assert nat["images"] == len(names)
+    for k in ("max_f", "mae", "mean_f"):
+        assert nat[k] == pytest.approx(res[k], abs=1e-5), k
+    best = ceval.run_eval(run["cfg"], epoch_range=(1, 2), log=_Log(),
+                          device="cpu", method="port", backend="native")
+    assert best["ECSSD"]["max_f"] == pytest.approx(nat["max_f"], abs=1e-12)
+    with open(os.path.join(run["cfg"].DATA.SAVEDIR, "port",
+                           "FmeasureResult_ECSSD_1.txt")) as f:
+        assert len(f.read().splitlines()) == 256 + 7
+    assert ceval.run_eval(cfg, backend="native", device="cpu",
+                          log=_Log())["ECSSD"]["epoch"] == -1  # no dumps
+    ceval.main(["--dirs", run["sal_dir"], gt_dir, "--backend", "native"])
+    with pytest.raises(SystemExit, match="--wfmeasure is not computed"):
+        ceval.main(["--dirs", run["sal_dir"], gt_dir, "--backend", "native",
+                    "--wfmeasure"])
 
 
 _REPORT = re.compile(r"(MaxF|MAE|MeanF|AdpF|MaxE|MeanE|AdpE|S|wF) "
