@@ -164,6 +164,32 @@ Phases; any failure exits non-zero:
    micro-step time beside phase 10f's bare B=8 micro-step, the test
    driver's FPS, native vs device scoring img/s, the phase's wall time.
 
+13. the recipe tools on the card, counting ``fused_dw_chain`` launches
+   (``tools_launches``, the trajectory's validations):
+13a. in a process of its own, beside 13b and phase 14 (it is ~2,500
+   host-bound steps): ``tools.prune_trajectory`` at the JAX package's slow-test
+   configuration (600 + 30 epochs, basewidth 8, 32 images at 48^2, B=8, lr
+   2e-3, flops weight 30; about 2,500 steps) held to that test's
+   invariants: gamma sparsity > 30%, parameter drop > 25%, post-prune MAE
+   <= pre-prune + 0.05, finetuned MAE < 0.15 and <= 1.6x pre-prune;
+13b. ``tools.bf16_ab`` at B=24, 224^2, basewidth 40, 60 steps: finite
+   trajectories and gammas, its markdown printed;
+14. data parallelism (``sod100k_tpu_torch.parallel``), counting
+   ``fused_dw_chain`` launches over the phase (``dp_launches``):
+14a. ``python -m sod100k_tpu_torch.cli.train`` under SOD100K_COORDINATOR
+   with SOD100K_NUM_PROCESSES=1 (NCCL) against the same run without the
+   variables: the same printed loss, the penalty and the checkpoint's
+   checksum within rel 1e-5, the val MAE within 5e-3 (CUDA training is not
+   bit-reproducible between two processes);
+14b. two processes on the one card over gloo (CUDA tensors): the CSNet-L
+   step at B=24 (12 + 12), the penalty on, against one process at B=24,
+   beside one process's own cuDNN-on-vs-off distance: f32 SGD 2 steps at
+   the JAX multi-host oracle's bars (first loss rel 1e-5, second rel 1e-4,
+   checksum rel 1e-4); bf16 Adam-dwd 3 steps, checksum rel 1e-4 (its
+   losses printed: bf16 engines differ by ~5e-4 on the first loss);
+14c. two processes run the resident TESTALL sweep through the driver:
+   each rank's table equals one process's to six decimals.
+
 Needs torch with CUDA and nvcc; no jax, cv2, PIL or yaml. The second line from
 the end is a JSON summary of the kernels; the last line is the run's JSON
 result.
@@ -185,6 +211,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -2615,6 +2642,440 @@ def phase_csf_cli(gpu: str, step_ms: float) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The recipe tools on the card (phase 13)
+
+# the JAX package's slow test of the trajectory (tests/test_prune.py:138-140)
+TRAJECTORY = dict(train_epochs=600, ft_epochs=30, basewidth=8, images=32,
+                  size=48, batch=8, lr=2e-3, flops_weight=30.0)
+AB = dict(steps=60, batch=24, hw=224, basewidth=40, log_every=10)
+
+
+def trajectory_worker(out_path: str) -> None:
+    """13a in a process of its own (``start_trajectory``): the trajectory
+    at TRAJECTORY on the card, its result, time and fused_dw_chain
+    launches written to ``out_path``."""
+    from sod100k_tpu_torch.tools import prune_trajectory
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dw_chain.launches = 0
+    t0 = time.perf_counter()
+    res = prune_trajectory.run_trajectory(**TRAJECTORY, device="cuda",
+                                          log=say)
+    torch.cuda.synchronize()
+    with open(out_path, "w") as f:
+        json.dump({"result": res, "launches": dw_chain.launches,
+                   "secs": time.perf_counter() - t0}, f)
+
+
+def start_trajectory(tmp: str):
+    """Start 13a: the trajectory is ~2,500 host-bound steps (~126 ms each,
+    a few % of the card), so it runs beside 13b and phase 14 instead of
+    before them. Returns (process, its log, its result path)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "trajectory.json")
+    log = open(os.path.join(tmp, "trajectory.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.trajectory_worker({out!r})"],
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo}, stdout=log,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, log, out
+
+
+def finish_trajectory(started, gpu: str) -> int:
+    """13a's result: the JAX slow test's invariants (tests/test_prune.py:
+    141-146). Returns its fused_dw_chain launches (the validations)."""
+    proc, log, out = started
+    try:
+        rc = proc.wait(timeout=1200)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.seek(0)
+        text = log.read()
+        log.close()
+    say(f"13a: prune_trajectory {TRAJECTORY} (in its own process)")
+    for line in text.splitlines():
+        say(f"  | {line}")
+    check(rc == 0, f"the trajectory's process exit {rc}")
+    with open(out) as f:
+        got = json.load(f)
+    res, launches = got["result"], got["launches"]
+    steps = (TRAJECTORY["train_epochs"] + TRAJECTORY["ft_epochs"] + 1) * (
+        TRAJECTORY["images"] // TRAJECTORY["batch"])
+    say(f"  {steps} train steps and the validations in {got['secs']:.1f} s "
+        f"(beside 13b and phase 14); {launches} fused_dw_chain launches  "
+        f"[{gpu}]")
+    check(res["gamma_sparsity_pct"] > 30, "gamma sparsity > 30%")
+    check(res["param_drop_pct"] > 25, "parameter drop > 25%")
+    check(res["mae_post_prune"] <= res["mae_pre_prune"] + 0.05,
+          "post-prune MAE <= pre-prune + 0.05")
+    check(res["mae_post_finetune"] < 0.15
+          and res["mae_post_finetune"] <= 1.6 * res["mae_pre_prune"],
+          "finetuned MAE < 0.15 and <= 1.6x pre-prune")
+    check(launches > 0, "the trajectory's validations ran the kernel")
+    return launches
+
+
+def phase_ab(gpu: str) -> None:
+    """13b: the bf16 A/B at B=24, 224^2, basewidth 40: finite
+    trajectories and gammas, its markdown printed."""
+    from sod100k_tpu_torch.tools import bf16_ab
+
+    say(f"13b: bf16_ab {AB}")
+    t0 = time.perf_counter()
+    ab = bf16_ab.run_ab(**AB, device="cuda", log=lambda m: None)
+    for line in ab["lines"]:
+        say(f"  | {line.strip()}")
+    curves = np.asarray([c[1:] for arm in ab["curves"].values()
+                         for c in arm])
+    check(np.isfinite(curves).all() and len(curves) == 2 * (
+        AB["steps"] // AB["log_every"]), "finite A/B trajectories")
+    check(all(np.isfinite(g).all() for g in ab["gammas"].values()),
+          "finite gammas in both arms")
+    say(f"  the A/B took {time.perf_counter() - t0:.1f} s (beside 13a)  "
+        f"[{gpu}]")
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism on the card (phase 14)
+
+DP_BATCH = 24          # the recipe's batch, global: 12 per rank
+DP_TIMED_STEPS = 10
+DP_TRAIN_PAIRS = 48    # two B=24 steps of a driver epoch
+DP_SWEEP_PAIRS = 64    # four B=16 batches: two per rank
+DP_SWEEP_BATCH = 16
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_worker(role: str, args_path: str) -> None:
+    """One rank of a phase-14 world, started by ``run_dp_ranks`` with the
+    SOD100K_* variables: joins over gloo (two ranks on the one card, which
+    NCCL refuses), runs ``role`` and writes its JSON result next to
+    ``args_path``."""
+    from sod100k_tpu_torch.parallel import mesh, multihost
+
+    with open(args_path) as f:
+        args = json.load(f)
+    check(multihost.init_from_env(log=say, backend="gloo"),
+          "the worker joined a world of several processes")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dw_chain.launches = 0
+    out = {"rank": mesh.rank(), "device": str(mesh.local_device())}
+    if role == "step":
+        out.update(dp_steps(args, mesh.data_group()))
+    else:
+        out["reports"] = dp_sweep(args)
+    torch.cuda.synchronize()
+    out["launches"] = dw_chain.launches
+    multihost.barrier("done")
+    with open(f"{args_path}.rank{mesh.rank()}.json", "w") as f:
+        json.dump(out, f)
+
+
+def run_dp_ranks(role: str, args: dict, tmp: str, n: int = 2) -> list:
+    """Run ``dp_worker(role)`` as ``n`` processes of one world on the card;
+    returns their JSON results. Every process is waited for or killed."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    args_path = os.path.join(tmp, f"{role}-{len(os.listdir(tmp))}.json")
+    with open(args_path, "w") as f:
+        json.dump(args, f)
+    port = free_port()
+    procs = []
+    try:
+        for pid in range(n):
+            env = {**os.environ, "PYTHONPATH": repo,
+                   "SOD100K_COORDINATOR": f"127.0.0.1:{port}",
+                   "SOD100K_NUM_PROCESSES": str(n),
+                   "SOD100K_PROCESS_ID": str(pid)}
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 f"import chip_smoke; chip_smoke.dp_worker({role!r}, "
+                 f"{args_path!r})"], cwd=repo, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            say(text[-4000:])
+        check(p.returncode == 0, f"{role} rank {pid} exit {p.returncode}")
+    res = []
+    for pid in range(n):
+        with open(f"{args_path}.rank{pid}.json") as f:
+            res.append(json.load(f))
+    return res
+
+
+def dp_steps(args: dict, group) -> dict:
+    """``args["steps"]`` checked train steps of CSNet-L (u8 wire, the
+    penalty on) at the global batch, then DP_TIMED_STEPS timed ones; with a
+    group, this rank's rows. Returns the losses, the parameter checksum,
+    the step time and, with a group, the gradient all-reduce's time."""
+    from sod100k_tpu_torch.parallel import mesh, multihost
+
+    torch.backends.cudnn.enabled = args.get("cudnn", True)
+    model = CSNet(init_layers(40, (0.5, 0.5)), device="cuda")
+    model.load_state_dict(torch.load(args["state"], map_location="cuda"))
+    mesh.replicate(model, group)
+    opt = (make_adam_dwd(model) if args["opt"] == "adam_dwd"
+           else make_sgd(model, momentum=0.9))
+    step = make_train_step(model, opt, **PENALTY, batch_size=DP_BATCH,
+                           compute_dtype=getattr(torch, args["dtype"]),
+                           from_u8=True, group=group)
+    batches = [on_card(multihost.local_slice_feed(b) if group else b)
+               for b in blob_batches(args["steps"], DP_BATCH, seed=14)]
+    losses = []
+    for b in batches:
+        losses.append(step(b, LR, 1.0)["loss"].item())
+    checksum = float(sum(p.detach().double().abs().sum()
+                         for p in model.parameters()))
+    times = step_ms(step, batches[0], DP_TIMED_STEPS if args.get(
+        "cudnn", True) else 1)
+    torch.backends.cudnn.enabled = True
+    out = {"losses": losses, "checksum": checksum,
+           "step_ms": float(np.median(times))}
+    if group is not None:
+        ar = step_ms(lambda *_: mesh.all_reduce_grads(model.parameters(),
+                                                      group), None,
+                     DP_TIMED_STEPS)
+        out["allreduce_ms"] = float(np.median(ar))
+        out["grad_mib"] = sum(p.grad.numel() * p.grad.element_size()
+                              for p in model.parameters()) / 2**20
+    return out
+
+
+def phase_dp_train_driver(root: str, gpu: str) -> None:
+    """14a: ``python -m sod100k_tpu_torch.cli.train`` under
+    SOD100K_COORDINATOR with SOD100K_NUM_PROCESSES=1 (NCCL, a world of one
+    process) against the same run without the variables: a world of one
+    runs the single-process code, so the runs differ only by the card's
+    run-to-run noise."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    make_synth_split(os.path.join(root, "DUTS-TR"), DP_TRAIN_PAIRS,
+                     hw=(150, 200), jitter=10, seed=3)
+    make_synth_split(os.path.join(root, "ECSSD"), 12, hw=(150, 200),
+                     jitter=10, seed=4)
+    runs = {}
+    for tag in ("one process", "NCCL world of 1"):
+        yml = os.path.join(root, f"train-{len(runs)}.yml")
+        save = os.path.join(root, f"results-{len(runs)}")
+        with open(yml, "w") as f:
+            f.write(TRAIN_YAML.format(root=root).replace(
+                f"{root}/results", save))
+        env = {**os.environ, "PYTHONPATH": repo}
+        if runs:
+            env.update(SOD100K_COORDINATOR=f"127.0.0.1:{free_port()}",
+                       SOD100K_NUM_PROCESSES="1", SOD100K_PROCESS_ID="0")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "sod100k_tpu_torch.cli.train", "--config",
+             yml, "--epochs", "1"], cwd=repo, capture_output=True, text=True,
+            timeout=600, env=env)
+        if out.returncode:
+            say(out.stdout[-3000:] + out.stderr[-3000:])
+        check(out.returncode == 0, f"cli.train ({tag}) exit "
+              f"{out.returncode}")
+        lines = [l.strip() for l in out.stdout.splitlines()
+                 if l.startswith(("Epoch:", " epoch:", "data parallel"))]
+        ck = torch.load(os.path.join(save, "csnet-L-x2", "checkpoint",
+                                     "checkpoint_epoch1.pth.tar"),
+                        map_location="cpu", weights_only=False)["state_dict"]
+        runs[tag] = {"lines": lines, "state": ck,
+                     "wall_s": time.perf_counter() - t0}
+        say(f"  {tag}: {' | '.join(lines)} ({runs[tag]['wall_s']:.1f} s)")
+    a, b = runs.values()
+    check(any("(nccl)" in l for l in b["lines"]),
+          "the run under the variables joined over NCCL")
+
+    def numbers(r) -> tuple:
+        """The last printed loss and penalty, the val MAE, the checksum."""
+        text = "\n".join(r["lines"])
+        loss, pen = re.findall(r"Loss (\S+)\s+FakeFLOPs (\S+)", text)[-1]
+        mae = re.search(r" mae: (\S+) best", text).group(1)
+        return (float(loss), float(pen), float(mae),
+                sum(float(v.double().abs().sum())
+                    for v in r["state"].values()))
+
+    (la, pa, ma, ca), (lb, pb, mb, cb) = numbers(a), numbers(b)
+    diff = max(float((a["state"][k].double() - b["state"][k].double())
+                     .abs().max()) for k in a["state"])
+    say(f"  loss {la} / {lb}, penalty rel {abs(pa - pb) / pa:.2e}, val MAE "
+        f"{ma} / {mb}, checkpoint checksum rel {abs(ca - cb) / ca:.2e}, "
+        f"max |d| {diff:.3e} over {len(a['state'])} tensors")
+    # CUDA training is not bit-reproducible between two processes (the
+    # bilinear upsample's backward adds with atomics; max |d| 0.82 on a
+    # BN running variance): the bars are the printed loss, the penalty and
+    # the checksum within rel 1e-5, and the val MAE, read from maps
+    # quantized to 1/255, within 5e-3 (pairs of runs of this code on the
+    # card read 1.6e-4, 6.0e-4 and 1.5e-3 apart)
+    check(la == lb, "the same printed loss")
+    check(abs(pa - pb) <= 1e-5 * pa, "the penalty within rel 1e-5")
+    check(abs(ma - mb) <= 5e-3, "the val MAE within 5e-3")
+    check(abs(ca - cb) <= 1e-5 * ca, "the checkpoint's checksum within "
+          "rel 1e-5")
+
+
+def phase_dp_step(tmp: str, gpu: str) -> dict:
+    """14b: two processes on the one card over gloo (CUDA tensors) run the
+    CSNet-L train step at B=24 global (12 + 12) with the penalty on against
+    the single-process B=24 step on the card, beside the single process's
+    own distance between cuDNN on and off (the engine's noise):
+
+    - f32 (TF32 off), SGD with momentum 0.9, 2 steps: the JAX multi-host
+      oracle's bars and configuration (tests/test_multihost.py:102-104,
+      tests/mh_worker.py): first loss within rel 1e-5, second within rel
+      1e-4, parameter checksum within rel 1e-4;
+    - bf16, Adam with dynamic weight decay (the recipe), 3 steps: the
+      checksum within rel 1e-4. Its losses are printed, not gated: in
+      bf16 one process's cuDNN on and off already differ by ~5e-4 on the
+      first loss and by more later (the x100 net amplifies single bf16
+      roundings), so no bar of 1e-5 holds between any two engines.
+    """
+    model = CSNet(init_layers(40, (0.5, 0.5)), seed=0, device="cuda")
+    calib = np.random.default_rng(1).integers(0, 256, (4, *HW, 3), np.uint8)
+    calibrate_bn(model, normalize_u8(torch.from_numpy(calib).cuda()))
+    state = os.path.join(tmp, "dp_state.pt")
+    torch.save(model.state_dict(), state)
+    del model
+    out = {}
+    for dtype, opt, steps in (("float32", "sgd", 2),
+                              ("bfloat16", "adam_dwd", 3)):
+        tag = f"{dtype} {opt}, {steps} steps"
+        args = {"state": state, "opt": opt, "dtype": dtype, "steps": steps}
+        ref = dp_steps(args, None)
+        alt = dp_steps({**args, "cudnn": False}, None)
+        ranks = run_dp_ranks("step", args, tmp)
+        got = ranks[0]
+        for k in ("losses", "checksum"):
+            check(ranks[1][k] == got[k], f"{tag}: {k} equal on both ranks")
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   ref["losses"])]
+        eng = [abs(a - b) / abs(b) for a, b in zip(alt["losses"],
+                                                   ref["losses"])]
+        rel_c = abs(got["checksum"] - ref["checksum"]) / ref["checksum"]
+        eng_c = abs(alt["checksum"] - ref["checksum"]) / ref["checksum"]
+        say(f"  {tag}: two processes {got['losses']} vs one "
+            f"{ref['losses']}: rel {', '.join(f'{r:.2e}' for r in rel)}, "
+            f"checksum rel {rel_c:.2e} (devices "
+            f"{[r['device'] for r in ranks]})")
+        say(f"  {tag}: one process, cuDNN off vs on: rel "
+            f"{', '.join(f'{r:.2e}' for r in eng)}, checksum rel "
+            f"{eng_c:.2e} (the engine's own noise)")
+        check(rel_c < 1e-4, f"{tag}: checksum within rel 1e-4")
+        if dtype == "float32":
+            check(rel[0] < 1e-5, f"{tag}: first loss within rel 1e-5")
+            check(max(rel[1:]) < 1e-4, f"{tag}: later losses within 1e-4")
+        say(f"  {tag}: step {got['step_ms']:.2f} / {ranks[1]['step_ms']:.2f}"
+            f" ms per rank at 12 rows (two ranks on one card, gloo through "
+            f"the host) vs {ref['step_ms']:.2f} ms at 24 rows in one "
+            f"process; the gradient all-reduce alone "
+            f"{got['allreduce_ms']:.2f} ms for {got['grad_mib']:.2f} MiB  "
+            f"[{gpu}]")
+        out[dtype] = {"rel": rel, "rel_checksum": rel_c, "engine": eng,
+                      "step_ms": got["step_ms"], "ref_ms": ref["step_ms"],
+                      "allreduce_ms": got["allreduce_ms"]}
+    return out
+
+
+def sweep_cfg(root: str):
+    """The resident TESTALL configuration of 14c (CSNet-L at 224^2)."""
+    from sod100k_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.TASK = "dp_sweep"
+    cfg.DATA.SAVEDIR = root
+    cfg.DATA.BATCH_SIZE = DP_SWEEP_BATCH
+    cfg.TEST.DATASET_PATH = root
+    cfg.TEST.DATASETS = ["ECSSD-DP"]
+    cfg.TEST.IMAGE_H, cfg.TEST.IMAGE_W = HW
+    cfg.TEST.MODEL_CONFIG = os.path.join(root, "dp_sweep", "lc.bin")
+    cfg.TEST.BEGIN = cfg.TEST.INTERVAL = 1
+    cfg.CUDA.TEST_RESIDENT = True
+    return cfg
+
+
+def dp_sweep(args: dict) -> list:
+    """The resident TESTALL sweep through the driver; its report lines."""
+    from sod100k_tpu_torch.cli.test import run_testall_resident
+
+    reports = []
+    run_testall_resident(sweep_cfg(args["root"]), log=reports.append)
+    return [r for r in reports if "[resident]" in r]
+
+
+def phase_dp_sweep(root: str, tmp: str, gpu: str) -> int:
+    """14c: two processes run the resident TESTALL sweep of a calibrated
+    CSNet-L over DP_SWEEP_PAIRS images (the batches split over the ranks,
+    the metric sums all-reduced): every rank's table equals the single
+    process's to the report's six decimals. Returns the fused_dw_chain
+    launches of both runs."""
+    make_synth_split(os.path.join(root, "ECSSD-DP"), DP_SWEEP_PAIRS, seed=8)
+    lc = init_layers(40, (0.5, 0.5))
+    model = CSNet(lc, seed=5, device="cuda")
+    ds = SalData(os.path.join(root, "ECSSD-DP"), HW, mode="val")
+    calibrate_bn(model, normalize_u8(torch.from_numpy(np.stack([
+        resize_u8_linear(ds._decode_u8(i)[0], HW)
+        for i in range(12)])).cuda()))
+    os.makedirs(os.path.join(root, "dp_sweep", "checkpoint"))
+    lc.save(os.path.join(root, "dp_sweep", "lc.bin"))
+    save_checkpoint(os.path.join(root, "dp_sweep", "checkpoint",
+                                 "checkpoint_epoch1.pth.tar"), model, None,
+                    epoch=1)
+    dw_chain.launches = 0
+    t0 = time.perf_counter()
+    want = dp_sweep({"root": root})
+    one_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dw_chain.launches
+    t0 = time.perf_counter()
+    ranks = run_dp_ranks("sweep", {"root": root}, tmp)
+    two_s = time.perf_counter() - t0
+    for r in ranks:
+        say(f"  rank {r['rank']} ({r['device']}): {r['reports'][0]}; "
+            f"{r['launches']} launches")
+        check(r["reports"] == want, "the two-process table equals the "
+              "single process's")
+    say(f"  one process: {want[0]}; {launches} launches; {one_s:.1f} s, "
+        f"two processes {two_s:.1f} s (process start and store build "
+        f"included)  [{gpu}]")
+    total = launches + sum(r["launches"] for r in ranks)
+    check(all(r["launches"] > 0 for r in ranks),
+          "every rank's sweep ran the kernel")
+    return total
+
+
+def phase_dp(gpu: str) -> int:
+    """Phase 14: data parallelism on the card. Returns the fused_dw_chain
+    launches over the phase (``dp_launches``)."""
+    t14 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root, \
+            tempfile.TemporaryDirectory() as tmp:
+        say("14a: cli.train in a world of one process over NCCL vs none")
+        phase_dp_train_driver(root, gpu)
+        say("14b: two processes on the card, the CSNet-L step at B=24 "
+            "(12 + 12) vs one process")
+        steps = phase_dp_step(tmp, gpu)
+        say("14c: two processes, the resident TESTALL sweep vs one "
+            "process")
+        launches = phase_dp_sweep(root, tmp, gpu)
+    say(f"  phase 14 took {time.perf_counter() - t14:.1f} s; {launches} "
+        f"fused_dw_chain launches  [{gpu}]")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -2743,6 +3204,24 @@ def main() -> None:
         "and the native SalMetric")
     csf_cli_launches = phase_csf_cli(gpu, csf_step_ms)
 
+    say("phase 13: the recipe tools (python -m sod100k_tpu_torch.tools.*); "
+        "13a runs in its own process beside 13b and phase 14")
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trajectory = start_trajectory(tmp)
+        try:
+            phase_ab(gpu)
+            say("phase 14: data parallelism (sod100k_tpu_torch.parallel)")
+            dp_launches = phase_dp(gpu)
+        except BaseException:
+            proc, log, _ = trajectory
+            proc.kill()
+            proc.wait()
+            log.close()
+            raise
+        tools_launches = finish_trajectory(trajectory, gpu)
+    say(f"  phases 13 and 14 took {time.perf_counter() - t13:.1f} s  [{gpu}]")
+
     print(json.dumps({"kernels": [{
         "name": "fused_dw_chain", "route": "cuda",
         "source": "sod100k_tpu_torch/csrc/dw_chain.cu",
@@ -2759,7 +3238,8 @@ def main() -> None:
         "sweep_launches": sweep_launches,
         "slim_launches": slim_launches, "csf_launches": csf_launches,
         "cli_launches": cli_launches,
-        "csf_cli_launches": csf_cli_launches}]}))
+        "csf_cli_launches": csf_cli_launches,
+        "tools_launches": tools_launches, "dp_launches": dp_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

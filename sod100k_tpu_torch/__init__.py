@@ -14,6 +14,9 @@ Layout follows the JAX package:
     train/     train and eval steps, the dynamic-weight-decay penalty,
                optimizers and LR schedules, .pth.tar checkpoints
     prune/     channel pruning on the state_dict, the slim-model builder
+    parallel/  data parallelism over torch.distributed, one process per
+               card (the SOD100K_* variables or torchrun's)
+    tools/     the recipe tools: prune trajectory, bf16-vs-f32 A/B
     serve.py, serve_http.py   artifacts, bucketed ServingModel, HTTP daemon
 
 Tensors inside the model are NCHW; the public edges (model forward, train

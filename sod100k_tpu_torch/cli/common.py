@@ -10,6 +10,12 @@ Architecture snapshots are the reference's pickled layer_config .bin files.
 
 Every function that touches tensors takes the device it runs on; the
 drivers pass the card unless a caller (a test) names the CPU.
+
+Data parallelism (``parallel/``): every driver calls ``init_data_parallel``
+first, which joins the processes the SOD100K_* variables (or torchrun's)
+describe and gives each rank its own card. The primary alone writes logs,
+architecture snapshots and checkpoints; the others wait at a barrier
+before they read what it wrote.
 """
 
 from __future__ import annotations
@@ -28,30 +34,49 @@ from ..data.image_io import resize_f32_linear
 from ..data.pipeline import (SalData, batches, device_prefetch,
                              hybrid_batches, raw_batches, require_device)
 from ..interop.torch_ckpt import load_checkpoint
+from ..parallel import mesh, multihost
 from ..train.checkpoint import save_checkpoint
 from ..utils.profiler import FLOP_COUNTER, simplesum
 
 PREPROCESS_MODES = ("host", "hybrid", "device", "resident")
 
 
+def init_data_parallel(device, log=print) -> tuple[torch.device, object]:
+    """Join the data-parallel world the environment describes (no-op
+    without it; ``parallel.multihost.init_from_env``) before anything
+    touches the card. Returns the device this process runs on (its own
+    card when the caller asked for the card) and the data group (None for
+    a single process)."""
+    multihost.init_from_env(log)
+    device = require_device(device)
+    if device.type == "cuda" and multihost.is_multihost():
+        device = mesh.local_device()
+    return device, mesh.data_group()
+
+
 class Logger:
     """Tee to stdout + a timestamped log file (reference log_string
-    pattern)."""
+    pattern); under data parallelism only the primary keeps the file."""
 
     def __init__(self, log_dir: str, prefix: str, task: str):
+        self._f = None
+        if not multihost.is_primary():
+            return
         os.makedirs(log_dir, exist_ok=True)
         stamp = time.strftime("%Y_%m_%d-%H_%M_%S")
         self.path = os.path.join(log_dir, f"{prefix}_{task}_{stamp}.txt")
         self._f = open(self.path, "w")
 
     def __call__(self, msg, display: bool = True) -> None:
-        self._f.write(str(msg) + "\n")
-        self._f.flush()
+        if self._f is not None:
+            self._f.write(str(msg) + "\n")
+            self._f.flush()
         if display:
             print(msg)
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def resolve_dirs(cfg) -> dict:
@@ -95,13 +120,17 @@ def build_model_from_cfg(cfg, dirs: dict, log=print, *,
         if cfg.AUTO.EXPAND > 1:
             log(f"Expand the basewidth from 20 to {basewidth}")
         lc = init_layers(basewidth, cfg.MODEL.BASIC_SPLIT)
-    lc.save(os.path.join(dirs["layer_configs"], "layer_config_0.bin"))
-    lc.save(os.path.join(dirs["layer_configs"], "layer_config_latest.bin"))
+    if multihost.is_primary():
+        lc.save(os.path.join(dirs["layer_configs"], "layer_config_0.bin"))
+        lc.save(os.path.join(dirs["layer_configs"],
+                             "layer_config_latest.bin"))
 
     model = build(lc, device=require_device(device), seed=cfg.CUDA.SEED)
     save_checkpoint(
         os.path.join(dirs["checkpoint"], "checkpoint_init.pth.tar"), model,
         None, epoch=-1, arch="CSNet")
+    # every process sees the primary's files before anything reads them
+    multihost.barrier("model-built")
     n, flops = simplesum(model, (cfg.DATA.IMAGE_H, cfg.DATA.IMAGE_W, 3))
     log("  + Number of params: %.4fM" % (n / 1e6))
     log("  + Number of FLOPs: %.4fG (%s)" % (flops / 1e9, FLOP_COUNTER))
@@ -158,10 +187,15 @@ class TrainFeeds:
     CUDA.PREPROCESS: host, hybrid or device iterators through
     ``device_prefetch``, or (resident) the uint8 store and the val split
     uploaded once. ``epoch`` runs one epoch of ``step``; ``validate``
-    scores the model's val MAE (nan without VAL.DIR)."""
+    scores the model's val MAE (nan without VAL.DIR).
+
+    Under data parallelism (``group``) DATA.BATCH_SIZE is the global
+    batch: every rank draws the same global batches and trains on its
+    rows; the resident validation splits its batches over the ranks, the
+    host one runs whole on every rank (the same number everywhere)."""
 
     def __init__(self, cfg, step, model: nn.Module, device, log, *,
-                 resident_seed: int, tag: str):
+                 resident_seed: int, tag: str, group=None):
         from ..data.resident import (build_resident_dataset,
                                      build_resident_val_dataset,
                                      make_resident_epoch_fn,
@@ -169,6 +203,7 @@ class TrainFeeds:
         from ..train.step import make_eval_step
 
         self.cfg, self.step, self.device, self.log = cfg, step, device, log
+        self.group = group
         self.mode = check_preprocess(cfg)
         self.resident_seed, self.tag = resident_seed, tag
         self.hw = (cfg.DATA.IMAGE_H, cfg.DATA.IMAGE_W)
@@ -196,7 +231,8 @@ class TrainFeeds:
         # (prepare_data.py:26-88); express that fraction at the store scale
         max_crop = max(1, round(15 * store / 224))
         self.epoch_fn = make_resident_epoch_fn(
-            step, batch_size=batch, out_hw=self.hw, max_crop=max_crop)
+            step, batch_size=batch, out_hw=self.hw, max_crop=max_crop,
+            group=group)
         log(f"resident dataset: {len(self.train_ds)} images @{store}px "
             f"uint8 = {_mib(self.resident):.0f} MiB on {device}")
         if self.val_ds is not None:
@@ -206,7 +242,7 @@ class TrainFeeds:
             self.resident_val = vdata
             self.val_fn = make_resident_val_fn(
                 make_eval_step(model, from_u8=True), batch_size=batch,
-                canvas_hw=canvas_hw)
+                canvas_hw=canvas_hw, group=group)
             log(f"resident val set: {len(self.val_ds)} images, native "
                 f"canvas {canvas_hw}, {_mib(vdata):.0f} MiB on {device}")
 
@@ -236,17 +272,22 @@ class TrainFeeds:
             if after_step is not None:
                 after_step(nb)
             return loss, pen, nb
-        from ..data.device_pipeline import preprocess_train_batch
+        from ..data.device_pipeline import (draw_augment_params,
+                                            preprocess_train_batch)
 
         gen = torch.Generator(self.device).manual_seed(
             cfg.CUDA.SEED * 1_000_003 + epoch)
+        rows = mesh.row_slice(cfg.DATA.BATCH_SIZE, self.group)
         nb, m = 0, None
         for batch in device_prefetch(self._iterator(epoch),
                                      device=self.device):
             if self.mode == "device":
+                # the draws of the global batch, then this rank's rows
+                d = draw_augment_params(gen, cfg.DATA.BATCH_SIZE)
                 feed = preprocess_train_batch(
                     batch["image_u8"], batch["gt_u8"], batch["valid_hw"],
-                    generator=gen, out_hw=self.hw)
+                    draws={k: v[rows] for k, v in d.items()},
+                    out_hw=self.hw)
             elif self.mode == "hybrid":
                 feed = {"image": batch["image_u8"],
                         "target": batch["target_u8"]}

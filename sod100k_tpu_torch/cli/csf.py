@@ -17,8 +17,16 @@ backward in bf16 (parameters, frozen BN statistics and Adam stay f32);
 --remat recomputes the forward in the backward; --preprocess resident
 uploads the uint8 dataset to the card once (a fixed --image_size) and
 draws each epoch's order and flips there; --test_batch batches
-consecutive same-shape test images per forward. The JAX driver's mesh
-flags (--mesh_shape, --mesh_devices) are not part of this port.
+consecutive same-shape test images per forward.
+
+Training runs data-parallel, one process per card, under the SOD100K_*
+variables or torchrun's (``parallel.multihost``): --batch_size is the
+global batch, each rank trains on its rows and the gradients are summed
+over the ranks once per optimizer apply; it needs a fixed --image_size
+or --preprocess resident (the native-size buckets are ragged).
+--mesh_devices N checks that the world holds N processes (0: any). Test
+mode is single-process. The JAX driver's 2-D --mesh_shape is GSPMD's and
+not part of this port.
 
 Solver semantics (solver.py): frozen-BN backbone, Adam 5e-5 with coupled
 L2 5e-4 over the trainable parameters, gradients summed over iter_size
@@ -45,11 +53,12 @@ from ..data.image_io import write_png
 from ..data.pipeline import require_device
 from ..data.resident import build_resident_dataset, make_resident_csf_epoch_fn
 from ..interop.torch_ckpt import load_checkpoint
+from ..parallel import mesh, multihost
 from ..train.checkpoint import save_checkpoint
 from ..train.csf_step import (CSFTrainStep, freeze_reference_params,
                               make_csf_optimizer)
 from ..train.step import make_eval_step
-from .common import model_device
+from .common import init_data_parallel, model_device
 
 LR_DECAY_EPOCH = (15,)  # solver.py:24
 
@@ -118,16 +127,47 @@ def _epoch_batches(dataset: CSFTrainData, config, epoch: int):
     return padded_batches(dataset, config.batch_size, seed=epoch)
 
 
+def _check_world(config) -> None:
+    """The data-parallel CSF recipe's preconditions (JAX ``cli/csf.py:
+    178-188``): --mesh_devices, when given, is the world's size, the global
+    batch divides over it, and the feed has a fixed size."""
+    world = mesh.world_size()
+    want = getattr(config, "mesh_devices", 0) or 0
+    if want and want != world:
+        raise SystemExit(
+            f"--mesh_devices {want}: the data-parallel world holds {world} "
+            f"process(es), one per card (check the SOD100K_* variables or "
+            f"torchrun's --nproc-per-node)")
+    if world == 1:
+        return
+    if config.batch_size % world:
+        raise SystemExit(
+            f"multi-host CSF runs need --batch_size ({config.batch_size}) "
+            f"to divide evenly over the {world} processes")
+    if not config.image_size and \
+            getattr(config, "preprocess", "host") != "resident":
+        raise SystemExit(
+            "multi-host CSF training needs a fixed --image_size (the "
+            "native-size bucketed batches are ragged per bucket and cannot "
+            "be sliced evenly across processes)")
+
+
 def run_csf_train(config, log=print, *,
                   device: str | torch.device = "cuda") -> dict:
-    device = require_device(device)
+    device, group = init_data_parallel(device, log)
+    _check_world(config)
     run = 0
     while os.path.exists(os.path.join(config.save_folder, f"run-{run}")):
         run += 1
+    # every process lists the same runs and agrees on N at the barrier,
+    # then the primary alone creates the directory
+    multihost.barrier("csf-run-chosen")
     save_folder = os.path.join(config.save_folder, f"run-{run}")
-    os.makedirs(os.path.join(save_folder, "models"))
+    if multihost.is_primary():
+        os.makedirs(os.path.join(save_folder, "models"))
+    multihost.barrier("csf-run-made")
 
-    model = _load_params(config, log, device=device)
+    model = mesh.replicate(_load_params(config, log, device=device), group)
     freeze_reference_params(model)
     n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
     log(f"The number of trainable parameters: {n_params}")
@@ -138,7 +178,7 @@ def run_csf_train(config, log=print, *,
                         iter_size=config.iter_size,
                         batch_size=config.batch_size,
                         compute_dtype=compute_dtype,
-                        remat=getattr(config, "remat", False))
+                        remat=getattr(config, "remat", False), group=group)
     dataset = CSFTrainData(config.train_root, config.train_list)
 
     resident = getattr(config, "preprocess", "host") == "resident"
@@ -160,8 +200,8 @@ def run_csf_train(config, log=print, *,
         log(f"resident CSF dataset: {len(dataset)} images at "
             f"{config.image_size}^2 = {nbytes / 2**20:.0f} MiB on "
             f"{device.type}")
-        epoch_fn = make_resident_csf_epoch_fn(step,
-                                              batch_size=config.batch_size)
+        epoch_fn = make_resident_csf_epoch_fn(
+            step, batch_size=config.batch_size, group=group)
 
     def save(name: str, epoch: int) -> None:
         save_checkpoint(os.path.join(save_folder, "models", name), model,
@@ -180,7 +220,9 @@ def run_csf_train(config, log=print, *,
         t0 = time.time()
         if resident:
             gen = torch.Generator(device=device).manual_seed(epoch)
-            ep_losses = epoch_fn(rdata, gen, lr).cpu().numpy()
+            ep_losses = mesh.all_reduce_sum(
+                {"loss": epoch_fn(rdata, gen, lr)}, group)["loss"]
+            ep_losses = ep_losses.cpu().numpy()
             micro = ep_losses.shape[0]
             images = micro * config.batch_size
             for i in range(show, micro + 1, show):
@@ -189,11 +231,15 @@ def run_csf_train(config, log=print, *,
             pending = []  # device loss scalars, read at the show boundary
             micro = images = 0
             for batch in _epoch_batches(dataset, config, epoch):
-                pending.append(step(batch, lr)["loss"])
-                micro += 1
                 images += batch["image"].shape[0]
+                pending.append(step(multihost.local_slice_feed(batch),
+                                    lr)["loss"])
+                micro += 1
                 if micro % show == 0:
-                    report(epoch, micro, float(torch.stack(pending).sum()))
+                    # the ranks' shares summed: the global batch's loss
+                    r_loss = mesh.all_reduce_sum(
+                        {"loss": torch.stack(pending).sum()}, group)["loss"]
+                    report(epoch, micro, float(r_loss))
                     pending.clear()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -206,6 +252,7 @@ def run_csf_train(config, log=print, *,
             lr = lr * 0.1
             step.restart_optimizer()  # the reference re-creates Adam
     save("final.pth", config.epoch)
+    multihost.barrier("csf-trained")
     return {"save_folder": save_folder, "losses": losses}
 
 
@@ -224,6 +271,11 @@ def _to_host(preds: torch.Tensor):
 
 def run_csf_test(config, log=print, *,
                  device: str | torch.device = "cuda") -> dict:
+    multihost.init_from_env(log)
+    if multihost.is_multihost():
+        raise SystemExit(
+            "CSF test mode is single-host (per-image PNG writes don't "
+            "shard across processes); run it on one host")
     if not config.model or not config.test_fold:
         raise SystemExit("--mode test needs --model and --test_fold")
     model = CSFNet(config.arch, device=require_device(device))
@@ -325,6 +377,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="test-mode batch size: >1 batches consecutive "
                              "same-shape images per forward (meant for "
                              "uniform-size lists like --sal_mode m_r)")
+    parser.add_argument("--mesh_devices", type=int, default=0,
+                        help="training: the number of data-parallel "
+                             "processes (one per card) the run expects; "
+                             "0 = whatever the SOD100K_* or torchrun "
+                             "variables launched")
     parser.add_argument("--preprocess", type=str, default="host",
                         choices=["host", "resident"],
                         help="resident = upload the uint8 dataset to the "

@@ -15,6 +15,10 @@ into finetune_{dataset}_{epoch} every TEST.INTERVAL epochs from TEST.BEGIN
 As in the JAX package, the optimizer is created *after* pruning (the
 reference builds it against the pre-prune parameters, finetune.py:112-123
 vs :165-173, so the rebuilt model's tensors were never registered with it).
+
+Data parallelism as in ``cli.train``: one process per card from the
+SOD100K_* variables or torchrun's, DATA.BATCH_SIZE global, the primary
+writes.
 """
 
 from __future__ import annotations
@@ -27,19 +31,19 @@ import torch
 from ..arch import get_arch
 from ..arch.layer_config import LayerConfig
 from ..config import get_cfg
-from ..data.pipeline import require_device
+from ..parallel import mesh, multihost
 from ..prune.finetune import build_pruned_csnet, prune
 from ..train.checkpoint import save_checkpoint
 from ..train.optim import cosine_lr, make_adam, make_sgd, multistep_lr
 from ..train.step import make_train_step
 from ..utils.profiler import count_params
 from .common import (Logger, TrainFeeds, check_preprocess, compute_dtype,
-                     load_any_checkpoint, resolve_dirs)
+                     init_data_parallel, load_any_checkpoint, resolve_dirs)
 
 
 def run_finetune(cfg, from_epoch: int, max_epochs: int | None = None,
                  log=None, *, device: str | torch.device = "cuda") -> dict:
-    device = require_device(device)
+    device, group = init_data_parallel(device, log or print)
     dirs = resolve_dirs(cfg)
     if log is None:
         log = Logger(dirs["base"], "logfinetune", dirs["task"])
@@ -57,9 +61,10 @@ def run_finetune(cfg, from_epoch: int, max_epochs: int | None = None,
 
     log("Finetune to slim model.")
     sd, lc, _masks = prune(model.state_dict(), lc0, cfg.FINETUNE.THRES)
-    lc.save(os.path.join(dirs["layer_configs"],
-                         f"layer_config_finetune_{from_epoch}.bin"))
-    model = build_pruned_csnet(lc, sd, device=device)
+    if multihost.is_primary():
+        lc.save(os.path.join(dirs["layer_configs"],
+                             f"layer_config_finetune_{from_epoch}.bin"))
+    model = mesh.replicate(build_pruned_csnet(lc, sd, device=device), group)
     log("  + Number of params after: %.4fM" % (count_params(model) / 1e6))
 
     sol = cfg.FINETUNE.SOLVER
@@ -72,9 +77,9 @@ def run_finetune(cfg, from_epoch: int, max_epochs: int | None = None,
     step = make_train_step(
         model, optimizer, flops_weight=0.0, batch_size=cfg.DATA.BATCH_SIZE,
         compute_dtype=compute_dtype(cfg),
-        from_u8=preprocess == "hybrid")
+        from_u8=preprocess == "hybrid", group=group)
     feeds = TrainFeeds(cfg, step, model, device, log,
-                       resident_seed=7_777_771, tag="FtEpoch")
+                       resident_seed=7_777_771, tag="FtEpoch", group=group)
     ft_dir = os.path.join(dirs["base"],
                           f"finetune_checkpoint_epoch{from_epoch}")
     os.makedirs(ft_dir, exist_ok=True)
@@ -110,6 +115,7 @@ def run_finetune(cfg, from_epoch: int, max_epochs: int | None = None,
         save_checkpoint(
             os.path.join(ft_dir, f"checkpoint_epoch{epoch + 1}.pth.tar"),
             model, optimizer, epoch=epoch + 1, arch=cfg.MODEL.ARCH)
+    multihost.barrier("finetuned")
     return {"best_mae": best_mae, "best_epoch": best_epoch, "lc": lc,
             "ft_dir": ft_dir}
 

@@ -14,8 +14,9 @@ Then:
 The server owns the card from one dispatcher thread, coalesces concurrent
 requests into batched forwards (up to the largest exported bucket, waiting
 at most --max-wait-ms after the first request), and warms every bucket at
-startup (``serve_http.make_server``). One card: the JAX driver's
---mesh_devices has no counterpart here.
+startup (``serve_http.make_server``). --mesh_devices N serves on N cards
+from the one process: a replica per card, each bucket that N divides split
+over them (``serve.ServingModel``).
 """
 
 from __future__ import annotations
@@ -35,11 +36,15 @@ def main(argv=None) -> None:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-wait-ms", type=float, default=3.0,
                     help="batching window after the first queued request")
+    ap.add_argument("--mesh_devices", type=int, default=None,
+                    help="serve data-parallel: 0 = all visible cards, "
+                         "N = the first N (default: one card)")
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the per-bucket warm-up forwards")
     args = ap.parse_args(argv)
 
-    model = load_artifact(args.artifact, device="cuda")
+    model = load_artifact(args.artifact, device="cuda",
+                          mesh_devices=args.mesh_devices)
     srv = make_server(model, args.host, args.port,
                       max_wait_ms=args.max_wait_ms,
                       warmup=not args.no_warmup)

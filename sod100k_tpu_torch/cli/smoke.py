@@ -14,6 +14,12 @@ FmeasureResults files.
 
 Reference flow: train.py -> finetune.py --epoch N -> test.py -> eval.py
 (SURVEY.md section 3).
+
+Under the SOD100K_* variables (or torchrun's) the chain runs data-parallel
+on the 1-D group, one process per card: every process is given the same
+--save-dir, the primary writes the synthetic tree and the outputs, and
+eval runs on the primary. The JAX driver's 2-D --mesh_shape is GSPMD's and
+not part of this port.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ def run_smoke(data_root: str, save_dir: str, *, train_epochs: int = 2,
               batch_size: int = 4, log=_print_log,
               device: str | torch.device = "cuda") -> dict:
     from ..config import get_cfg
+    from ..parallel import multihost
     from .eval import run_eval
     from .finetune import run_finetune
     from .test import run_test, run_testall_resident
@@ -91,8 +98,10 @@ def run_smoke(data_root: str, save_dir: str, *, train_epochs: int = 2,
     tested = run_test(c, log=log, device=device)
 
     log("[smoke 4/5] eval (MAE / Max-F)")
-    best = run_eval(c, epoch_range=(tested["epoch"], tested["epoch"] + 1),
-                    log=log, device=device)
+    # the primary scores the maps it wrote; the other ranks have no report
+    best = (run_eval(c, epoch_range=(tested["epoch"], tested["epoch"] + 1),
+                     log=log, device=device)
+            if multihost.is_primary() else {})
 
     log("[smoke 5/5] resident TESTALL sweep (metrics on the card, no PNGs)")
     c2 = c.clone()
@@ -183,10 +192,21 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not args.data_root and not args.dry_data and not args.fetch:
         raise SystemExit("pass --data-root DIR, --dry-data, or --fetch NAME")
+    from ..parallel import multihost
+
+    if multihost.init_from_env() and (args.fetch or not args.save_dir):
+        raise SystemExit("a data-parallel smoke run needs --save-dir, the "
+                         "same directory for every process, and no --fetch "
+                         "(fetch once in a single process, then pass "
+                         "--data-root)")
     data_root = _fetch_root(args) if args.fetch else args.data_root
     if data_root is None:
-        data_root = os.path.join(tempfile.gettempdir(), "sod100k_dry_data")
-        make_dry_data(data_root)
+        data_root = (os.path.join(args.save_dir, "dry_data")
+                     if multihost.is_multihost() else
+                     os.path.join(tempfile.gettempdir(), "sod100k_dry_data"))
+        if multihost.is_primary():
+            make_dry_data(data_root)
+    multihost.barrier("smoke-data")
     save_dir = args.save_dir or tempfile.mkdtemp(prefix="sod_smoke_")
     out = run_smoke(data_root, save_dir, train_epochs=args.train_epochs,
                     image_hw=args.image_hw)

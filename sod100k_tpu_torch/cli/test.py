@@ -16,6 +16,11 @@ goes back through ``image_io.resize_u8_linear`` (cv2's u8 INTER_LINEAR bit
 for bit), an f32 map through ``pipeline.resize_bilinear_np`` and then
 *255; ``image_io.write_png`` encodes. The PNG bytes may differ from cv2's,
 the decoded pixels do not.
+
+Under data parallelism (one process per card, as ``cli.train``) each
+fixed-size batch is split over the ranks and the primary writes every map;
+the ceil-to-16 mode runs on the primary alone; the resident sweep splits
+its batches over the ranks and every rank logs the whole table.
 """
 
 from __future__ import annotations
@@ -35,15 +40,18 @@ from ..arch.layer_config import LayerConfig
 from ..config import get_cfg
 from ..data.image_io import resize_u8_linear, write_png
 from ..data.pipeline import (_imread_rgb_u8, preprocess_test_image,
-                             require_device, resize_bilinear_np)
+                             resize_bilinear_np)
+from ..parallel import mesh, multihost
 from ..train.step import make_eval_step
 from ..utils.profiler import count_params
-from .common import compute_dtype, load_any_checkpoint, model_device
+from .common import (compute_dtype, init_data_parallel, load_any_checkpoint,
+                     model_device)
 
 
 def run_test(cfg, log=print, *, device: str | torch.device = "cuda") -> dict:
+    device, _ = init_data_parallel(device, log)
     lc = LayerConfig.load(cfg.TEST.MODEL_CONFIG)
-    model = get_arch(cfg.MODEL.ARCH)(lc, device=require_device(device))
+    model = get_arch(cfg.MODEL.ARCH)(lc, device=device)
     epoch, _ = load_any_checkpoint(cfg.TEST.CHECKPOINT, model)
     log(f"=> loaded checkpoint '{cfg.TEST.CHECKPOINT}' (epoch {epoch})")
     log("  + Number of params: %.4fM" % (count_params(model) / 1e6))
@@ -68,7 +76,10 @@ def dump_saliency_maps(cfg, model: nn.Module, epoch, log=print,
     forward + sigmoid + resize-back + uint8 PNG dump into
     {dir_prefix}{dataset}_{epoch}. Used by run_test and by the finetune
     driver's in-loop periodic test (reference finetune.py:183-185,304-352,
-    which dumps into finetune_{ds}_{epoch})."""
+    which dumps into finetune_{ds}_{epoch}). Under data parallelism the
+    ranks split each fixed-size batch and the primary writes; the
+    ceil-to-16 mode runs on the primary alone (its results only there)."""
+    primary = multihost.is_primary()
     dtype = compute_dtype(cfg)
     device = model_device(model)
     task = cfg.TASK or cfg.MODEL.ARCH
@@ -92,6 +103,11 @@ def dump_saliency_maps(cfg, model: nn.Module, epoch, log=print,
     eval_step = make_eval_step(model, from_u8=hyb_pre, compute_dtype=dtype,
                                quantize_u8=quant)
     out_hw = (cfg.TEST.IMAGE_H, cfg.TEST.IMAGE_W)
+    # the ranks split each fixed-size batch; the ceil-to-16 mode runs
+    # whole on the primary, without collectives
+    group = mesh.data_group() if fixed else None
+    rows = mesh.row_slice(batch_size, group)
+    local_bs = len(range(batch_size)[rows])
 
     def load(name):
         path = os.path.join(img_dir, name)
@@ -111,8 +127,8 @@ def dump_saliency_maps(cfg, model: nn.Module, epoch, log=print,
             # 64-multiple bucket
             hp = max(-(-max(l[0].shape[0] for l in loaded) // 64) * 64, 64)
             wp = max(-(-max(l[0].shape[1] for l in loaded) // 64) * 64, 64)
-            imgs = np.zeros((batch_size, hp, wp, 3), np.uint8)
-            hws = np.ones((batch_size, 2), np.int32)
+            imgs = np.zeros((local_bs, hp, wp, 3), np.uint8)
+            hws = np.ones((local_bs, 2), np.int32)
             for i, (im, (h, w)) in enumerate(loaded):
                 imgs[i, :h, :w] = im
                 hws[i] = (h, w)
@@ -121,8 +137,6 @@ def dump_saliency_maps(cfg, model: nn.Module, epoch, log=print,
                                        out_hw=out_hw)
             return eval_step(x)
         stack = [l[0] for l in loaded]
-        # pad the trailing partial batch to the batch size
-        stack += [stack[-1]] * (batch_size - len(stack))
         x = np.stack(stack) if hyb_pre else np.concatenate(stack)
         return eval_step(torch.from_numpy(x))
 
@@ -134,6 +148,8 @@ def dump_saliency_maps(cfg, model: nn.Module, epoch, log=print,
         img_dir = os.path.join(cfg.TEST.DATASET_PATH, dataset, "images")
         names = sorted(os.listdir(img_dir))
         t0 = time.time()
+        if not fixed and not primary:
+            continue
         if native_tb > 1:
             _dump_native_batched(cfg, eval_step, names, img_dir, sal_dir,
                                  tb=native_tb, log=log)
@@ -147,20 +163,29 @@ def dump_saliency_maps(cfg, model: nn.Module, epoch, log=print,
         # one-deep software pipeline: the card computes batch k while the
         # host decodes batch k+1; the readback happens one iteration late
         def flush(pending):
-            chunk, loaded, dev_preds = pending
+            chunk, hws, dev_preds = pending
+            if not primary:
+                return
             preds = dev_preds.cpu().numpy()
-            for name, (_, hw), pred in zip(chunk, loaded, preds):
-                _save_map(sal_dir, name, pred[..., 0], hw)
+            for name, hw, pred in zip(chunk, hws.cpu().numpy(), preds):
+                _save_map(sal_dir, name, pred[..., 0],
+                          (int(hw[0]), int(hw[1])))
 
         pending = None
         with ThreadPoolExecutor(max_workers=max(cfg.DATA.WORKERS, 1)) as pool:
             for b0 in range(0, len(names), batch_size):
                 chunk = names[b0:b0 + batch_size]
-                loaded = list(pool.map(load, chunk))
-                preds = forward(loaded)
+                # the trailing partial batch padded with its last image;
+                # this rank decodes and runs its rows of the batch
+                padded = chunk + [chunk[-1]] * (batch_size - len(chunk))
+                loaded = list(pool.map(load, padded[rows]))
+                preds = mesh.gather_rows(forward(loaded), group)
+                hws = mesh.gather_rows(torch.tensor(
+                    [l[1] for l in loaded], dtype=torch.int64,
+                    device=preds.device), group)
                 if pending is not None:
                     flush(pending)
-                pending = (chunk, loaded, preds)
+                pending = (chunk, hws, preds)
             if pending is not None:
                 flush(pending)
         dt = time.time() - t0
@@ -168,6 +193,7 @@ def dump_saliency_maps(cfg, model: nn.Module, epoch, log=print,
             f"{len(names) / dt:.2f} img/s")
         results[dataset] = {"n": len(names), "sal_dir": sal_dir,
                             "img_per_sec": len(names) / dt}
+    multihost.barrier("maps-written")  # readers see every map
     return results
 
 
@@ -242,13 +268,15 @@ def run_testall_resident(cfg, log=print, *,
     F); only metric sums come back. Writes cli.eval-format files under
     distinct "_resident" names (this protocol's u8-resize inputs differ
     sub-1/255 from the reference dialect) and returns the best epoch by
-    MaxF per split. No PNG maps."""
+    MaxF per split. No PNG maps. Under data parallelism the ranks split
+    each split's batches, every rank logs the whole table and the primary
+    writes the files."""
     from ..data.pipeline import SalData
     from ..data.resident import (build_resident_val_dataset,
                                  make_resident_salmetric_fn)
     from ..metrics.salmetric import format_report, result_from_sums
 
-    device = require_device(device)
+    device, group = init_data_parallel(device, log)
     if not (cfg.TEST.IMAGE_H and cfg.TEST.IMAGE_W):
         raise SystemExit("CUDA.TEST_RESIDENT needs fixed TEST.IMAGE_H/W "
                          "(the ceil-to-16 mode is per-image-shaped)")
@@ -277,7 +305,7 @@ def run_testall_resident(cfg, log=print, *,
         if wf_skipped:
             log(f"resident test split {ds}: weighted-F SKIPPED: {wf_skipped}")
         splits[ds] = (data, make_resident_salmetric_fn(
-            eval_step, batch_size=batch, canvas_hw=canvas_hw))
+            eval_step, batch_size=batch, canvas_hw=canvas_hw, group=group))
         nbytes = sum(v.numel() * v.element_size() for v in data.values())
         log(f"resident test split {ds}: {len(sd)} images "
             f"({nbytes / 2**20:.0f} MiB on {device})")
@@ -302,14 +330,15 @@ def run_testall_resident(cfg, log=print, *,
             if "weighted_f" in res:
                 report += f" wF {res['weighted_f']:.6f}"
             log(report)
-            with open(os.path.join(
-                    out_dir, f"FmeasureResults_{ds}_resident.txt"),
-                    "a") as flog:
-                flog.write(report + "\n")
-            with open(os.path.join(
-                    out_dir, f"FmeasureResult_{ds}_{epoch}_resident.txt"),
-                    "w") as f:
-                f.write(format_report(res))
+            if multihost.is_primary():
+                with open(os.path.join(
+                        out_dir, f"FmeasureResults_{ds}_resident.txt"),
+                        "a") as flog:
+                    flog.write(report + "\n")
+                with open(os.path.join(
+                        out_dir, f"FmeasureResult_{ds}_{epoch}_resident.txt"),
+                        "w") as f:
+                    f.write(format_report(res))
             if res["max_f"] > best[ds]["max_f"]:
                 best[ds] = {"max_f": res["max_f"], "epoch": epoch}
         epoch += cfg.TEST.INTERVAL
@@ -361,13 +390,14 @@ def main(argv=None) -> None:
             run_testall_resident(cfg)  # metrics inline; no PNGs, no eval
             return
         runs = run_testall(cfg)
-        if runs and not args.skip_eval:
+        # the primary scores the maps it wrote (one report, one writer)
+        if runs and not args.skip_eval and multihost.is_primary():
             lo = min(r["epoch"] for r in runs)
             hi = max(r["epoch"] for r in runs)
             run_eval(cfg, epoch_range=(lo, hi + 1))
         return
     res = run_test(cfg)
-    if not args.skip_eval:
+    if not args.skip_eval and multihost.is_primary():
         run_eval(cfg, epoch_range=(res["epoch"], res["epoch"] + 1))
 
 

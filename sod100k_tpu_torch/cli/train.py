@@ -8,6 +8,13 @@ group split, MultiStepLR stepped at epoch starts, BCE + FLOPs penalty while
 epoch < AUTO.FINETUNE, per-epoch val MAE with best-epoch tracking, and
 reference-format per-epoch checkpoints, on the card. LOSS.MLOSS is accepted
 and has no effect: CSNet returns one map.
+
+On N cards, one process per card: set SOD100K_COORDINATOR=host:port,
+SOD100K_NUM_PROCESSES=N and SOD100K_PROCESS_ID in each process, or launch
+with ``SOD100K_MULTIHOST=auto torchrun --nproc-per-node N -m
+sod100k_tpu_torch.cli.train ...``. DATA.BATCH_SIZE is then the global
+batch: each rank trains on its rows, with global-batch BN statistics, and
+the primary writes the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -19,15 +26,16 @@ import time
 import torch
 
 from ..config import get_cfg
-from ..data.pipeline import require_device
 from ..interop.torch_ckpt import load_pretrained
+from ..parallel import mesh, multihost
 from ..train.checkpoint import save_checkpoint
 from ..train.optim import make_adam, make_adam_dwd, multistep_lr
 from ..train.step import make_train_step
 from ..utils.profiler import trace
 from .common import (Logger, TrainFeeds, build_model_from_cfg,
-                     check_preprocess, compute_dtype, is_torch_optimizer_state,
-                     load_any_checkpoint, log_peak_memory, resolve_dirs)
+                     check_preprocess, compute_dtype, init_data_parallel,
+                     is_torch_optimizer_state, load_any_checkpoint,
+                     log_peak_memory, resolve_dirs)
 
 
 class _FirstSteps:
@@ -56,7 +64,7 @@ class _FirstSteps:
 
 def run_training(cfg, max_epochs: int | None = None, log=None, *,
                  device: str | torch.device = "cuda") -> dict:
-    device = require_device(device)
+    device, group = init_data_parallel(device, log or print)
     dirs = resolve_dirs(cfg)
     if log is None:
         log = Logger(dirs["base"], "logtrain", dirs["task"])
@@ -96,6 +104,8 @@ def run_training(cfg, max_epochs: int | None = None, log=None, *,
                 "resumes, the optimizer starts fresh")
         log(f"=> loaded checkpoint (epoch {start_epoch})")
 
+    # rank 0's weights on every rank (all built from one seed and one file)
+    mesh.replicate(model, group)
     preprocess = check_preprocess(cfg)
     flops_expand = (cfg.AUTO.FLOPS.EXPAND if cfg.AUTO.FLOPS.EXPAND != -1.0
                     else 2.0)
@@ -104,9 +114,9 @@ def run_training(cfg, max_epochs: int | None = None, log=None, *,
         flops_weight=cfg.AUTO.FLOPS.WEIGHT if cfg.AUTO.FLOPS.ENABLE else 0.0,
         flops_expand=flops_expand, batch_size=cfg.DATA.BATCH_SIZE,
         compute_dtype=compute_dtype(cfg),
-        from_u8=preprocess == "hybrid")
+        from_u8=preprocess == "hybrid", group=group)
     feeds = TrainFeeds(cfg, step, model, device, log,
-                       resident_seed=7_777_777, tag="Epoch")
+                       resident_seed=7_777_777, tag="Epoch", group=group)
 
     best_mae, best_epoch = float("inf"), -1
     epochs = max_epochs if max_epochs is not None else cfg.SOLVER.MAX_EPOCHS
@@ -150,6 +160,7 @@ def run_training(cfg, max_epochs: int | None = None, log=None, *,
             os.path.join(dirs["checkpoint"],
                          f"checkpoint_epoch{epoch + 1}.pth.tar"),
             model, optimizer, epoch=epoch + 1, arch=cfg.MODEL.ARCH)
+    multihost.barrier("trained")  # the checkpoints exist for every rank
     return {"best_mae": best_mae, "best_epoch": best_epoch, "history": history,
             "lc": lc, "dirs": dirs}
 

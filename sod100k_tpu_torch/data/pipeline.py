@@ -26,6 +26,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..parallel.multihost import local_slice_feed
 from .image_io import (image_size, read_image, resize_f32_linear,
                        resize_u8_linear)
 
@@ -378,12 +379,17 @@ def device_prefetch(it: Iterator[dict], *, device="cuda",
     On the card the arrays go through pinned host memory and a non-blocking
     copy on a side stream; each batch carries an event that the consumer's
     stream waits on before the batch is yielded. Other values pass through.
-    Abandoning the generator releases the producer."""
+    Abandoning the generator releases the producer.
+
+    Under data parallelism (several processes) the iterator yields the
+    same index-deterministic global batch on every rank and only this
+    rank's rows move (``parallel.multihost.local_slice_feed``)."""
     device = require_device(device)
     cuda = device.type == "cuda"
     stream = torch.cuda.Stream(device) if cuda else None
 
     def place(batch: dict):
+        batch = local_slice_feed(batch)
         out = {}
         for k, v in batch.items():
             if isinstance(v, np.ndarray):

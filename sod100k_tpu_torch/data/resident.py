@@ -22,7 +22,14 @@ Port of ``sod100k_tpu/data/resident.py:37-372``:
    that ``metrics.salmetric.result_from_sums`` reduces on the host in f64.
 
 Every builder puts its tensors on the card unless the caller names another
-device, and raises when the card is absent. The JAX package's augmentation
+device, and raises when the card is absent.
+
+Under data parallelism (``group``, one process per card) every rank holds
+the whole store. The epochs draw the permutation and the augmentations of
+the global batch from the same generator on every rank and keep the rank's
+rows, so W ranks see exactly the rows, crops and flips of one process. The
+evaluation paths split the batches over the ranks and SUM-all-reduce the
+metric sums, which are additive. The JAX package's augmentation
 note holds here too: images are pre-resized to the store size, so the crop
 acts at that scale (``max_crop`` 17 ~ 15 * 256/224).
 """
@@ -34,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_sum, rank, row_slice, world_size
 from .device_pipeline import preprocess_train_batch, resize_to_native_canvas
 from .image_io import resize_u8_linear
 from .pipeline import require_device
@@ -65,7 +73,8 @@ def build_resident_dataset(dataset, store_hw=(256, 256), *,
 
 
 def make_resident_epoch_fn(step_fn, *, batch_size: int, out_hw,
-                           augment: bool = True, max_crop: int = 17):
+                           augment: bool = True, max_crop: int = 17,
+                           group=None):
     """An epoch over a resident store: shuffle -> per batch (gather ->
     augment -> ``step_fn``).
 
@@ -76,8 +85,12 @@ def make_resident_epoch_fn(step_fn, *, batch_size: int, out_hw,
     Returns ``epoch_fn(data, generator, lr, penalty_on) -> (losses (nb,),
     penalties (nb,))``, device tensors. The permutation, then each batch's
     draws, come from ``generator`` (on the store's device), in that order.
+    With ``group``, ``batch_size`` is the global batch and the step sees
+    this rank's rows of it.
     """
     from .device_pipeline import draw_augment_params
+
+    rows = row_slice(batch_size, group)
 
     def epoch_fn(data: dict, generator: torch.Generator, lr: float,
                  penalty_on: float):
@@ -92,8 +105,11 @@ def make_resident_epoch_fn(step_fn, *, batch_size: int, out_hw,
         for idxs in perm:
             d = (draw_augment_params(generator, batch_size, max_crop)
                  if augment else None)
+            idxs = idxs[rows]
+            if d is not None:
+                d = {k: v[rows] for k, v in d.items()}
             batch = preprocess_train_batch(
-                store[idxs], gts[idxs], valid, draws=d, out_hw=out_hw,
+                store[idxs], gts[idxs], valid[rows], draws=d, out_hw=out_hw,
                 augment=augment, max_crop=max_crop)
             m = step_fn(batch, lr, penalty_on)
             losses.append(m["loss"])
@@ -103,7 +119,7 @@ def make_resident_epoch_fn(step_fn, *, batch_size: int, out_hw,
     return epoch_fn
 
 
-def make_resident_csf_epoch_fn(step_fn, *, batch_size: int):
+def make_resident_csf_epoch_fn(step_fn, *, batch_size: int, group=None):
     """An epoch of the CSF recipe over a resident store: shuffle -> per
     batch (gather -> per-sample horizontal flip at p=0.5 -> ImageNet
     normalization of the u8 image and target / 255 on the device ->
@@ -116,9 +132,13 @@ def make_resident_csf_epoch_fn(step_fn, *, batch_size: int):
     Returns ``epoch_fn(data, generator, lr, draws=None) -> losses (nb,)``,
     a device tensor. The permutation, then the (nb, batch_size) flips, come
     from ``generator`` (on the store's device), unless ``draws`` gives them:
-    ``(perm (nb, batch_size) int64, flips (nb, batch_size) bool)``.
+    ``(perm (nb, batch_size) int64, flips (nb, batch_size) bool)``. With
+    ``group``, ``batch_size`` is the global batch, the step sees this
+    rank's rows of it and the losses are this rank's shares.
     """
     from .pipeline import normalize_u8
+
+    rows = row_slice(batch_size, group)
 
     def epoch_fn(data: dict, generator: torch.Generator, lr: float,
                  draws=None) -> torch.Tensor:
@@ -135,7 +155,7 @@ def make_resident_csf_epoch_fn(step_fn, *, batch_size: int):
             perm, flips = (torch.as_tensor(d, device=store.device)
                            for d in draws)
         losses = []
-        for idxs, fl in zip(perm, flips):
+        for idxs, fl in zip(perm[:, rows], flips[:, rows]):
             img, gt = store[idxs], gts[idxs]
             img = torch.where(fl[:, None, None, None], img.flip(2), img)
             gt = torch.where(fl[:, None, None], gt.flip(2), gt)
@@ -224,14 +244,21 @@ def _batch_native_maps(eval_step, img, hw, canvas_hw):
     return sal255, mask
 
 
-def _batches(data: dict, batch_size: int, keys):
+def _batches(data: dict, batch_size: int, keys, group=None):
+    """(index, batch) of the split's batches that this rank scores: every
+    W-th from its rank, all of them without a group."""
     nb = data["image_u8"].shape[0] // batch_size
-    for b in range(nb):
+    w = world_size(group) if group is not None else 1
+    if w > nb:
+        raise ValueError(f"{nb} batches of {batch_size} cannot be shared by "
+                         f"{w} processes; use a smaller batch")
+    for b in range(rank(group) if w > 1 else 0, nb, w):
         sl = slice(b * batch_size, (b + 1) * batch_size)
-        yield {k: data[k][sl] for k in keys if k in data}
+        yield b, {k: data[k][sl] for k in keys if k in data}
 
 
-def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw):
+def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw,
+                               group=None):
     """The TESTALL sweep over a resident split: per batch, forward ->
     native resize-back -> PNG quantization -> threshold counts, MAE, P/R,
     E-measure, adaptive F and E, S-measure and (when the store has the
@@ -241,7 +268,9 @@ def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw):
     ``fn(data) -> dict`` of per-batch sums on the card, each with a leading
     (nb,) axis: "n", "mae_sum", "p_sum"/"r_sum"/"e_sum" (256 each),
     "a_sum", "ae_sum", "s_sum" and "w_sum". Reduce them on the host with
-    ``metrics.salmetric.result_from_sums``."""
+    ``metrics.salmetric.result_from_sums``. With ``group`` each rank scores
+    its share of the batches and the (nb, ...) sums are all-reduced: every
+    rank returns the single-process sums, bit for bit."""
     from ..metrics.salmetric import (adaptive_e_per_image,
                                      adaptive_f_per_image, per_image_stats)
     from ..metrics.smeasure import s_measure_batch
@@ -251,8 +280,9 @@ def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw):
 
     @torch.inference_mode()
     def fn(data: dict) -> dict:
-        out = []
-        for xs in _batches(data, batch_size, keys):
+        nb = data["image_u8"].shape[0] // batch_size
+        out = {}
+        for b, xs in _batches(data, batch_size, keys, group):
             wt = xs["weight"]
             sal255, mask = _batch_native_maps(eval_step, xs["image_u8"],
                                               xs["hw"], canvas_hw)
@@ -275,34 +305,42 @@ def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw):
                 sums["w_sum"] = torch.sum(wf_per_image_device(
                     sal255 / 255.0, xs["gt_u8"], mask, xs["wf_idx"],
                     xs["wf_weight"]) * wt)
-            out.append(sums)
-        return {k: torch.stack([s[k] for s in out]) for k in out[0]}
+            for k, v in sums.items():
+                if k not in out:
+                    out[k] = v.new_zeros((nb, *v.shape))
+                out[k][b] = v
+        # under a group each rank filled its batches' rows and left zeros
+        # elsewhere: the SUM has one non-zero term per row, so it is exact
+        return all_reduce_sum(out, group)
 
     return fn
 
 
-def make_resident_val_fn(eval_step, *, batch_size: int, canvas_hw):
+def make_resident_val_fn(eval_step, *, batch_size: int, canvas_hw,
+                         group=None):
     """Validation over a resident val set: per image, the map resized to
     its native (h, w), trunc-quantized to /255 steps and L1-scored against
     the native GT (the host protocol, cli/common.py val_mae).
 
     ``eval_step``: ``make_eval_step(model, from_u8=True, ...)``. Returns
     ``val_fn(data) -> MAE``, a 0-d f32 tensor on the card (weighted by
-    "weight", so the padding copies count for nothing)."""
+    "weight", so the padding copies count for nothing). With ``group`` each
+    rank scores its share of the batches and the sums are all-reduced."""
 
     @torch.inference_mode()
     def val_fn(data: dict) -> torch.Tensor:
-        s = c = None
-        for xs in _batches(data, batch_size, ("image_u8", "gt_u8", "hw",
-                                              "weight")):
+        dev = data["image_u8"].device
+        s = c = torch.zeros((), device=dev)
+        for _, xs in _batches(data, batch_size, ("image_u8", "gt_u8", "hw",
+                                                 "weight"), group):
             hw, wt = xs["hw"], xs["weight"]
             sal255, mask = _batch_native_maps(eval_step, xs["image_u8"], hw,
                                               canvas_hw)
             diff = torch.abs(sal255 / 255.0
                              - xs["gt_u8"].float() / 255.0) * mask
             maes = diff.sum(dim=(1, 2)) / (hw[:, 0] * hw[:, 1]).float()
-            bs, bc = torch.sum(maes * wt), wt.sum()
-            s, c = (bs, bc) if s is None else (s + bs, c + bc)
-        return s / c
+            s, c = s + torch.sum(maes * wt), c + wt.sum()
+        tot = all_reduce_sum({"s": s, "c": c}, group)
+        return tot["s"] / tot["c"]
 
     return val_fn

@@ -1,15 +1,22 @@
 """Eval-mode batch norm, group norm and PReLU (NCHW).
 
-Port of ``sod100k_tpu/ops/norm.py:27-32,61-76``. The modules are torch's
+Port of ``sod100k_tpu/ops/norm.py:27-76``. The modules are torch's
 own ``nn.BatchNorm2d``, ``nn.GroupNorm`` and ``nn.PReLU``; train mode runs
 ``nn.BatchNorm2d`` as it is (batch statistics, unbiased running variance,
 momentum 0.1). Group norm (the CSF head's) has no running statistics and
 no mode.
+
+Under data parallelism (one process per card) the batch statistics are
+those of the global batch, as the JAX package's ``batchnorm_train`` gets
+them from GSPMD over a sharded batch: ``convert_global_bn`` turns a
+model's batch norms into ``GlobalBatchNorm2d``, which all-reduces the
+per-channel sums in its forward and backward.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -51,3 +58,87 @@ def norm_act(norm: nn.Module, act: nn.PReLU, x: torch.Tensor) -> torch.Tensor:
     else:
         y = norm(x) if norm.training else batchnorm_infer(x, norm)
     return prelu(y, act.weight)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the batch of every rank of ``group``
+    (``sod100k_tpu/ops/norm.py:35-60`` semantics): per-channel sums in f32,
+    all-reduced with the element count; the one-pass variance E[x^2] -
+    E[x]^2 clamped at 0; y = (x - mean) * (rsqrt(var + eps) * weight) + bias
+    in f32, cast to the input's dtype; running statistics updated in place
+    with the unbiased variance of the global count. The backward
+    all-reduces (sum dy, sum dy * xhat) for the input gradient and returns
+    this rank's share of the weight and bias gradients (the step sums
+    those over ranks with the other gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps,
+                momentum, group):
+        dims = (0, 2, 3)
+        c = x.shape[1]
+        xf = x.float()
+        count = torch.full((1,), xf.numel() // c, dtype=torch.float64,
+                           device=x.device)
+        stats = torch.cat([xf.sum(dims).double(),
+                           xf.square().sum(dims).double(), count])
+        dist.all_reduce(stats, group=group)
+        n = stats[-1]
+        mean64 = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean64.square(), min=0.0)
+        mean, inv = mean64.float(), torch.rsqrt(var.float() + eps)
+        running_mean.mul_(1 - momentum).add_(momentum * mean)
+        running_var.mul_(1 - momentum).add_(
+            momentum * (var * (n / torch.clamp(n - 1, min=1))).float())
+        view = (1, c, 1, 1)
+        y = (xf - mean.view(view)) * (inv * weight).view(view) \
+            + bias.view(view)
+        ctx.save_for_backward(x, weight, mean, inv)
+        ctx.n, ctx.group = float(n), group
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, inv = ctx.saved_tensors
+        dims, view = (0, 2, 3), (1, x.shape[1], 1, 1)
+        dyf = dy.float()
+        xhat = (x.float() - mean.view(view)) * inv.view(view)
+        local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
+        glob = local.clone()
+        dist.all_reduce(glob, group=ctx.group)
+        g_dy, g_dyx = glob.view(2, -1).div(ctx.n)
+        dx = (weight * inv).view(view) * (
+            dyf - g_dy.view(view) - xhat * g_dyx.view(view))
+        d_bias, d_weight = local.view(2, -1)
+        return (dx.to(x.dtype), d_weight, d_bias, None, None, None, None,
+                None)
+
+
+class GlobalBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode statistics are those of the
+    global batch over ``group`` (``_GlobalBatchNorm``). With no group, a
+    group of one process, or in eval mode it is ``nn.BatchNorm2d``
+    unchanged. Made by ``convert_global_bn``, which keeps the module
+    objects, their parameters and their state_dict keys."""
+
+    group = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (not self.training or self.group is None
+                or dist.get_world_size(self.group) == 1):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        return _GlobalBatchNorm.apply(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            self.eps, self.momentum, self.group)
+
+
+def convert_global_bn(model: nn.Module, group) -> nn.Module:
+    """Make every ``nn.BatchNorm2d`` of ``model`` a ``GlobalBatchNorm2d``
+    over ``group``, in place: the same objects (so maps keyed on them, as
+    ``goct.bn_paths``, still hold), parameters, buffers and state_dict
+    keys. Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.__class__ = GlobalBatchNorm2d
+            m.group = group
+    return model

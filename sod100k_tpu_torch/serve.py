@@ -15,6 +15,10 @@ contracts are the JAX package's: ``wire="f32"`` takes ImageNet-normalized
 float32 NHWC and returns the float32 (N,H,W,1) sigmoid; ``wire="u8"`` takes
 raw uint8 RGB (normalized on device) and returns trunc(sigmoid*255) as
 uint8. Parameters stay f32; activations run in the compute dtype.
+
+``mesh_devices`` serves data-parallel in one process: one replica per
+card, and a bucket that divides evenly is split over the replicas (the
+JAX package's batch-sharded serving, ``sod100k_tpu/serve.py:125-180``).
 """
 
 from __future__ import annotations
@@ -88,9 +92,16 @@ class ServingModel:
     Any request batch N is served over the artifact's buckets: the smallest
     covering bucket handles the tail (padded by repeating the last image,
     padding discarded), the largest handles overflow in chunks. Spatial dims
-    must match the artifact exactly."""
+    must match the artifact exactly.
 
-    def __init__(self, path: str, device: str | torch.device):
+    ``mesh_devices``: None or 1 serves on ``device``; N > 1 puts a replica
+    on each of the first N cards (0: every visible card) and splits each
+    bucket that N divides over them, the others run on the first. On the
+    CPU the N replicas all live on the CPU (the same arithmetic, for
+    tests)."""
+
+    def __init__(self, path: str, device: str | torch.device,
+                 mesh_devices: int | None = None):
         with open(os.path.join(path, "meta.json")) as f:
             self.meta = json.load(f)
         family = self.meta.get("family")
@@ -108,18 +119,30 @@ class ServingModel:
                 f"artifact with this runtime's torch")
         self.batches = sorted(self.meta["batches"])
         self.device = torch.device(device)
-        if family == "csnet":
-            lc = LayerConfig.load(os.path.join(path, "layer_config.bin"))
-            self.model = CSNet(lc, device=self.device)
-        else:
-            self.model = CSFNet(self.meta["backbone"], device=self.device)
-        state = torch.load(os.path.join(path, "model.pt"),
-                           map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state, strict=True)
+        cuda = self.device.type == "cuda"
+        n = 1 if mesh_devices is None else (
+            mesh_devices or (torch.cuda.device_count() if cuda else 1))
+        if cuda and n > torch.cuda.device_count():
+            raise ValueError(f"mesh_devices={n}: only "
+                             f"{torch.cuda.device_count()} card(s) visible")
+        devices = ([torch.device("cuda", i) for i in range(n)]
+                   if cuda and n > 1 else [self.device] * n)
+        state = torch.load(os.path.join(path, "model.pt"), map_location="cpu",
+                           weights_only=True)
         u8 = self.meta["wire"] == "u8"
-        self._step = make_eval_step(
-            self.model, from_u8=u8, quantize_u8=u8,
-            compute_dtype=_DTYPES[self.meta["compute_dtype"]])
+        self.models, self._steps = [], []
+        for dev in devices:
+            if family == "csnet":
+                lc = LayerConfig.load(os.path.join(path, "layer_config.bin"))
+                model = CSNet(lc, device=dev)
+            else:
+                model = CSFNet(self.meta["backbone"], device=dev)
+            model.load_state_dict(state, strict=True)
+            self.models.append(model)
+            self._steps.append(make_eval_step(
+                model, from_u8=u8, quantize_u8=u8,
+                compute_dtype=_DTYPES[self.meta["compute_dtype"]]))
+        self.model = self.models[0]
 
     @property
     def input_shape(self) -> tuple[int, int, int, int]:
@@ -151,11 +174,22 @@ class ServingModel:
             if take < b:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], b - take, axis=0)])
-            out = self._step(torch.from_numpy(np.ascontiguousarray(chunk)))
-            outs.append(out.cpu().numpy()[:take])
+            outs.append(self._forward(np.ascontiguousarray(chunk))[:take])
             i += take
         return np.concatenate(outs) if len(outs) > 1 else outs[0]
 
+    def _forward(self, chunk: np.ndarray) -> np.ndarray:
+        """One bucket's forward: split over the replicas when their count
+        divides it (every replica's work is queued before any result is
+        read back, so the cards run together), else on the first."""
+        k = len(self._steps)
+        if k == 1 or len(chunk) % k:
+            return self._steps[0](torch.from_numpy(chunk)).cpu().numpy()
+        parts = [step(torch.from_numpy(part)) for step, part in
+                 zip(self._steps, np.split(chunk, k))]
+        return np.concatenate([p.cpu().numpy() for p in parts])
 
-def load_artifact(path: str, device: str | torch.device) -> ServingModel:
-    return ServingModel(path, device=device)
+
+def load_artifact(path: str, device: str | torch.device,
+                  mesh_devices: int | None = None) -> ServingModel:
+    return ServingModel(path, device=device, mesh_devices=mesh_devices)

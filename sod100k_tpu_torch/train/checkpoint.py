@@ -8,6 +8,9 @@ reference. The ``optimizer`` entry is not: here it is
 optax state tree. Neither package reads the other's optimizer state;
 ``resume`` refuses one it cannot load. The JAX package's Orbax checkpoints
 are not ported.
+
+Under data parallelism only the primary process writes: the ranks hold
+the same weights.
 """
 
 from __future__ import annotations
@@ -16,12 +19,16 @@ import torch
 from torch import nn
 
 from ..interop.torch_ckpt import load_checkpoint
+from ..parallel.multihost import is_primary
 
 
 def save_checkpoint(path: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer | None, epoch: int,
                     arch: str = "csnet") -> None:
-    """Write the model's state_dict, the optimizer's state and the epoch."""
+    """Write the model's state_dict, the optimizer's state and the epoch
+    (on the primary process only)."""
+    if not is_primary():
+        return
     payload = {"epoch": epoch, "arch": arch,
                "state_dict": {k: v.detach().cpu()
                               for k, v in model.state_dict().items()}}

@@ -18,6 +18,11 @@ statistic moves during training.
 
 The eval step is ``train.step.make_eval_step`` on the CSFNet as it is: NHWC
 in, sigmoid (or its u8 quantization) out.
+
+Under data parallelism (``group``) each rank runs its rows of the global
+batch and the loss keeps dividing by the global batch, so the gradients
+are SUM-all-reduced, once per optimizer apply. The frozen BN statistics
+need no global batch norm.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data.pipeline import normalize_u8
+from ..parallel.mesh import all_reduce_grads
 from .optim import set_lr
 from .step import _device, _on
 
@@ -119,12 +125,18 @@ class CSFTrainStep:
     Gradients accumulate over ``iter_size`` calls; the call that completes
     them writes ``lr`` into the optimizer, steps it and zeroes them. The
     loss stays on the device: the step never waits for it.
+
+    ``group`` (``parallel.mesh.data_group()``): ``batch`` is this rank's
+    rows, ``batch_size`` the global batch, and the accumulated gradients
+    are summed over the ranks before each apply. The returned loss is this
+    rank's share of the micro-step's loss.
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  *, iter_size: int = 10, batch_size: int = 1,
                  compute_dtype: torch.dtype | None = None,
-                 from_u8: bool = False, remat: bool = False):
+                 from_u8: bool = False, remat: bool = False, group=None):
+        self.group = group
         self.model, self.optimizer = model, optimizer
         self.iter_size, self.batch_size = iter_size, batch_size
         self.compute_dtype, self.from_u8, self.remat = (compute_dtype,
@@ -154,6 +166,7 @@ class CSFTrainStep:
         loss.backward()
         self.micro += 1
         if self.micro == self.iter_size:
+            all_reduce_grads(self.model.parameters(), self.group)
             set_lr(self.optimizer, lr)
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)

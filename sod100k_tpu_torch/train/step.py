@@ -7,6 +7,13 @@ function of the parameter pytrees; here the step owns the model and its
 optimizer and updates both in place: parameters by ``optimizer.step()``, BN
 running statistics in the train-mode forward (momentum 0.1, unbiased
 variance).
+
+Under data parallelism (``group``, one process per card) the step is the
+single-process step at the global batch: the batch norms take global
+statistics (``ops.norm.convert_global_bn``); each rank backpropagates
+``bce_local / W + penalty_local`` and the gradients are SUM-all-reduced,
+which averages the BCE mean over ranks and sums the penalty, a sum over
+the batch divided by the configured (global) batch.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from torch import nn
 
 from ..data.pipeline import normalize_u8, quantize_sigmoid_u8
 from ..ops.goct import GapCollector, bn_paths
+from ..ops.norm import convert_global_bn
+from ..parallel.mesh import all_reduce_grads, all_reduce_sum, world_size
 from . import dynamic_wd
 from .optim import set_lr
 
@@ -47,7 +56,7 @@ def _on(device: torch.device, v) -> torch.Tensor:
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
                     flops_weight: float = 0.0, flops_expand: float = 2.0,
                     batch_size: int, compute_dtype: torch.dtype | None = None,
-                    from_u8: bool = False):
+                    from_u8: bool = False, group=None):
     """One training step: ``step(batch, lr, penalty_on) -> {"loss",
     "penalty"}``.
 
@@ -62,7 +71,16 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     param group (``optim.set_lr``). Puts ``model`` in train mode, at each
     call if an eval step has switched it since. The returned tensors stay
     on the device: the step never waits for it.
+
+    ``group`` (``parallel.mesh.data_group()``) makes it a data-parallel
+    step: ``batch`` holds this rank's rows, ``batch_size`` is the global
+    batch, the model's batch norms become global ones, and the returned
+    loss and penalty are the global values on every rank. With None, or a
+    group of one process, the step is the single-process one.
     """
+    world = world_size(group) if group is not None else 1
+    if world > 1:
+        convert_global_bn(model, group)
     fw = dynamic_wd.flop_weight_map(model.lc, flops_expand) \
         if flops_weight else {}
     terms = dynamic_wd.penalty_terms(model, fw)
@@ -81,7 +99,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
             model.train()
         gap = GapCollector(paths) if fw else None
         bce = bce_with_logits(model(image, gap), target)
-        loss = bce
+        # this rank's share of the global mean: the gradient SUM over ranks
+        # then averages it (world 1: the loss itself)
+        loss = bce / world if world > 1 else bce
         if fw:
             pen = dynamic_wd.penalty(terms, gap.gap, batch_size)
             loss = loss + penalty_on * flops_weight * pen
@@ -89,6 +109,11 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
             pen = torch.zeros((), device=device)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if world > 1:
+            all_reduce_grads(model.parameters(), group)
+            m = all_reduce_sum({"loss": bce.detach() / world,
+                                "penalty": pen.detach()}, group)
+            bce, pen = m["loss"], m["penalty"]
         set_lr(optimizer, lr)
         optimizer.step()
         return {"loss": bce.detach(), "penalty": pen.detach()}

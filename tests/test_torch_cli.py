@@ -759,7 +759,8 @@ def test_serve_main_answers_healthz_and_predict(shared, tmp_path,
         return srv
 
     monkeypatch.setattr(cserve, "load_artifact",
-                        lambda p, device: real_load(p, device="cpu"))
+                        lambda p, device, mesh_devices=None: real_load(
+                            p, device="cpu", mesh_devices=mesh_devices))
     monkeypatch.setattr(cserve, "make_server", make_server)
     cserve.main(["--artifact", art, "--port", "0"])
     assert seen["healthz"][0] == 200

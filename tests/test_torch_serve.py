@@ -118,6 +118,32 @@ def test_serving_model_buckets_match_jax(model, images_u8, wire, tmp_path):
     _check_wire_output(sm(x[4:5]), got[4:5], wire)
 
 
+@pytest.mark.parametrize("wire", ["f32", "u8"])
+def test_serving_replicas_split_buckets(model, images_u8, wire, tmp_path):
+    """``mesh_devices=2`` (two replicas; on the CPU both live there): 5
+    images over buckets (1, 4) split the bucket of 4 as 2 + 2 over the
+    replicas and run the bucket of 1 on the first, and the result matches
+    the JAX package at the wire's bar."""
+    export_artifact(str(tmp_path), model, batch=(4, 1), hw=HW,
+                    dtype=torch.float32, wire=wire)
+    sm = load_artifact(str(tmp_path), device="cpu", mesh_devices=2)
+    assert len(sm.models) == 2 and sm.models[0] is not sm.models[1]
+    assert sm.model is sm.models[0]
+    rows = []
+
+    def counted(step, i):
+        def run(x):
+            rows.append((i, x.shape[0]))
+            return step(x)
+        return run
+
+    sm._steps = [counted(step, i) for i, step in enumerate(sm._steps)]
+    x = images_u8 if wire == "u8" else _f32_wire(images_u8)
+    got = sm(x)
+    assert rows == [(0, 2), (1, 2), (0, 1)]
+    _check_wire_output(got, _jax_eval(model, x, wire), wire)
+
+
 def test_serving_model_refusals(model, images_u8, tmp_path):
     export_artifact(str(tmp_path), model, batch=2, hw=HW,
                     dtype=torch.float32, wire="u8")
