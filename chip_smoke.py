@@ -189,6 +189,23 @@ Phases; any failure exits non-zero:
    losses printed: bf16 engines differ by ~5e-4 on the first loss);
 14c. two processes run the resident TESTALL sweep through the driver:
    each rank's table equals one process's to six decimals.
+15. the 2-D data x spatial mesh (``sod100k_tpu_torch.parallel.spatial``):
+   two ranks share the card over gloo as a 1 x 2 mesh, each holding a band
+   of every image's rows, beside 13a as phase 14 runs:
+15a. CSNet-L at 224^2, B=2: f32 and bf16 eval forwards on the bands
+   against one process, every fused-tail call on band + 2-row halo held
+   against the plain version; its band launches are the kernels line's
+   ``spatial_launches``;
+15b. the CSNet-L train step, f32 SGD, B=2, 2 steps, against one process
+   at the JAX 2-D oracle's one-step bars (tests/test_parallel.py:287-300)
+   and the parameter checksum after both steps at rel 1e-4;
+15c. the Res2Net-50 CSF micro-step at 336^2, B=1, iter_size 2, f32,
+   against one process at tests/test_parallel.py:214-228's bars;
+15d. ``cli.csf --mode test --mesh_shape 1x2 --test_batch 2`` over 4
+   images: the PNGs within one level of one process's.
+   Printed, not gated: halo bytes and exchanges per forward and step, ms
+   per forward and step on each rank against one process, the phase's
+   wall time.
 
 Needs torch with CUDA and nvcc; no jax, cv2, PIL or yaml. The second line from
 the end is a JSON summary of the kernels; the last line is the run's JSON
@@ -2772,7 +2789,9 @@ def dp_worker(role: str, args_path: str) -> None:
     dw_chain.launches = 0
     out = {"rank": mesh.rank(), "device": str(mesh.local_device())}
     if role == "step":
-        out.update(dp_steps(args, mesh.data_group()))
+        out.update(dp_steps(args, mesh.data_mesh()))
+    elif role == "spatial":
+        out.update(spatial_worker(args))
     else:
         out["reports"] = dp_sweep(args)
     torch.cuda.synchronize()
@@ -2819,22 +2838,24 @@ def run_dp_ranks(role: str, args: dict, tmp: str, n: int = 2) -> list:
     return res
 
 
-def dp_steps(args: dict, group) -> dict:
+def dp_steps(args: dict, m=None) -> dict:
     """``args["steps"]`` checked train steps of CSNet-L (u8 wire, the
-    penalty on) at the global batch, then DP_TIMED_STEPS timed ones; with a
-    group, this rank's rows. Returns the losses, the parameter checksum,
-    the step time and, with a group, the gradient all-reduce's time."""
+    penalty on) at the global batch, then DP_TIMED_STEPS timed ones; on a
+    data mesh ``m`` of several processes, this rank's rows. Returns the
+    losses, the parameter checksum, the step time and, on a mesh, the
+    gradient all-reduce's time."""
     from sod100k_tpu_torch.parallel import mesh, multihost
 
     torch.backends.cudnn.enabled = args.get("cudnn", True)
     model = CSNet(init_layers(40, (0.5, 0.5)), device="cuda")
     model.load_state_dict(torch.load(args["state"], map_location="cuda"))
+    group = m.world if m is not None else None
     mesh.replicate(model, group)
     opt = (make_adam_dwd(model) if args["opt"] == "adam_dwd"
            else make_sgd(model, momentum=0.9))
     step = make_train_step(model, opt, **PENALTY, batch_size=DP_BATCH,
                            compute_dtype=getattr(torch, args["dtype"]),
-                           from_u8=True, group=group)
+                           from_u8=True, mesh=m)
     batches = [on_card(multihost.local_slice_feed(b) if group else b)
                for b in blob_batches(args["steps"], DP_BATCH, seed=14)]
     losses = []
@@ -3076,6 +3097,417 @@ def phase_dp(gpu: str) -> int:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# The 2-D data x spatial mesh on the card (phase 15)
+
+SP_BATCH = 2            # (a) and (b): both images on both ranks (1 x 2)
+SP_STEPS = 2            # (b): f32 SGD steps
+SP_TIMED = 3            # timed forwards and steps per rank
+SP_CSF_HW = 336         # (c): the recipe this mesh exists for
+SP_CSF_ITER = 2
+SP_TEST_HW = [(300, 400)] * 4  # (d): the test split, --test_batch 2
+SP_TB = 2
+
+
+def _spatial_images(seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (SP_BATCH, *HW, 3), np.uint8))
+
+
+def _record_grads(optimizer, names: dict) -> dict:
+    """The gradients each ``optimizer.step()`` sees, by parameter name."""
+    seen: dict = {}
+
+    def hook(opt, args, kwargs):
+        for g in opt.param_groups:
+            for p in g["params"]:
+                if p.grad is not None:
+                    seen[names[p]] = p.grad.detach().float().cpu().numpy()
+    optimizer.register_step_pre_hook(hook)
+    return seen
+
+
+def _csf_micro_steps(model: CSFNet, mesh2d=None) -> dict:
+    """(c): SP_CSF_ITER micro-steps of the f32 CSF step at B=1, 336^2 (u8
+    wire); the summed gradients the apply sees, the micro-steps' losses
+    (this rank's shares) and the step time."""
+    from sod100k_tpu_torch.parallel import multihost
+
+    freeze_reference_params(model)
+    opt = make_csf_optimizer(model, CSF_WD)
+    grads = _record_grads(opt, {p: n for n, p in model.named_parameters()})
+    kw = {} if mesh2d is None else {"mesh": mesh2d, "image_h": SP_CSF_HW}
+    step = make_csf_train_step(model, opt, iter_size=SP_CSF_ITER,
+                               batch_size=1, from_u8=True, **kw)
+    rng = np.random.default_rng(15)
+    batches = [{"image": rng.integers(0, 256, (1, SP_CSF_HW, SP_CSF_HW, 3),
+                                      np.uint8),
+                "target": (rng.random((1, SP_CSF_HW, SP_CSF_HW, 1)) > 0.5
+                           ).astype(np.uint8) * 255}
+               for _ in range(SP_CSF_ITER)]
+    if mesh2d is not None:
+        batches = [multihost.local_slice_feed(b, mesh=mesh2d)
+                   for b in batches]
+    losses = [step(b, CSF_LR)["loss"].item() for b in batches]
+    grads = dict(grads)  # the timed micro-steps below apply again
+    times = []
+    for _ in range(SP_TIMED):
+        t0 = time.perf_counter()
+        step(batches[0], CSF_LR)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "grads": grads,
+            "micro_ms": float(np.median(times))}
+
+
+def spatial_worker(args: dict) -> dict:
+    """One rank of phase 15's 1 x 2 world (two ranks on the one card over
+    gloo): (a) CSNet-L eval forwards on its band in f32 and bf16, each
+    fused-tail window held against the plain version; (b) the f32 SGD
+    train step on its bands; (c) the CSF micro-step at 336^2; (d)
+    ``cli.csf --mode test --mesh_shape 1x2``. Rank 0 saves the gathered
+    maps, the step's state and the gradients next to the args file."""
+    from sod100k_tpu_torch.cli import csf as ccsf
+    from sod100k_tpu_torch.parallel import mesh, multihost, spatial
+
+    m = mesh.make_mesh_2d(1, 2)
+    lc = init_layers(40, (0.5, 0.5))
+    out: dict = {}
+    arrays: dict = {}
+
+    # (a) eval forwards on the bands
+    model = CSNet(lc, device="cuda")
+    model.load_state_dict(torch.load(args["csnet"], map_location="cuda"))
+    model.eval()
+    x = normalize_u8(_spatial_images(args["seed"]).cuda())
+    orig = dw_chain.fused_dw_chain_packed
+    out["spatial_launches"] = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        sp = spatial.SpatialCtx(m, HW[0])
+        band = sp.shard(x.to(dtype), dim=1)
+        calls = []
+
+        def record(win, packed):
+            y = orig(win, packed)
+            calls.append((win, packed, y))
+            return y
+        dw_chain.fused_dw_chain_packed = record
+        dw_chain.spatial_launches = 0
+        try:
+            with torch.no_grad():
+                logits = model(band, spatial=sp)
+            torch.cuda.synchronize()
+        finally:
+            dw_chain.fused_dw_chain_packed = orig
+        out["spatial_launches"] += dw_chain.spatial_launches
+        arrays[f"a_{name}"] = spatial.gather_bands(
+            logits, sp, dim=1, h=HW[0]).float().cpu().numpy()
+        errs = [dw_chain.check_against_plain(
+            y, win, dw_chain.unpack_params(packed), **TOL[dtype])[0]
+            for win, packed, y in calls]
+        times = []
+        for _ in range(SP_TIMED):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model(band, spatial=spatial.SpatialCtx(m, HW[0]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"a_{name}"] = {
+            "tail_calls": len(calls), "tail_err": max(errs),
+            "exchanges": sp.exchanges, "halo_bytes": sp.halo_bytes,
+            "windows": sorted({tuple(w.shape) for w, _, _ in calls}),
+            "ms": float(np.median(times))}
+    del model
+
+    # (b) the f32 train step on the bands
+    model = CSNet(lc, device="cuda")
+    model.load_state_dict(torch.load(args["csnet"], map_location="cuda"))
+    step = make_train_step(model, make_sgd(model, momentum=0.9), **PENALTY,
+                           batch_size=SP_BATCH, from_u8=True, mesh=m,
+                           image_h=HW[0])
+    batches = [on_card(multihost.local_slice_feed(b, mesh=m))
+               for b in blob_batches(SP_STEPS, SP_BATCH, seed=15)]
+    res = []
+    for i, b in enumerate(batches):
+        res.append(step(b, LR, 1.0))
+        if i == 0 and multihost.is_primary():  # the one-step oracle's state
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                       args["b_state"])
+    out["b"] = {"losses": [r["loss"].item() for r in res],
+                "penalties": [r["penalty"].item() for r in res],
+                "checksum": float(sum(p.detach().double().abs().sum()
+                                      for p in model.parameters())),
+                "exchanges": res[0]["exchanges"],
+                "halo_bytes": res[0]["halo_bytes"]}
+    out["b"]["ms"] = float(np.median(step_ms(step, batches[0], SP_TIMED)))
+    del model, step
+
+    # (c) the CSF micro-step at 336^2
+    model = CSFNet("res2net50", device="cuda")
+    model.load_state_dict(torch.load(args["csf"], map_location="cuda"))
+    c = _csf_micro_steps(model, m)
+    out["c"] = {"losses": c["losses"], "micro_ms": c["micro_ms"]}
+    arrays.update({f"c/{k}": v for k, v in c["grads"].items()})
+    del model
+
+    # (d) the CSF test driver on the mesh
+    cfg = ccsf.build_parser().parse_args([
+        "--mode", "test", "--model", args["csf_ckpt"], "--test_fold",
+        args["d_fold"], "--mesh_shape", "1x2", "--test_batch", str(SP_TB)])
+    cfg.test_root, cfg.test_list = args["d_root"], args["d_list"]
+    out["d"] = ccsf.run_csf_test(cfg, log=lambda *a: None, device="cuda")
+    if multihost.is_primary():
+        np.savez(args["arrays"], **arrays)
+    return out
+
+
+def phase_spatial(gpu: str) -> int:
+    """Phase 15: the 2-D data x spatial mesh (``parallel.spatial``) on the
+    card. Two ranks share it over gloo (NCCL refuses two ranks on one
+    card), as a 1 x 2 mesh: each image's rows split in two bands.
+
+    (a) CSNet-L at 224^2, B=2, calibrated: f32 and bf16 eval forwards on
+        the bands against one process's in the same dtype (f32: phase 3's
+        bars, max |dlogit| < 1e-3 and sigmoid mean |d| < 1e-5; bf16,
+        chaotic across cuDNN algorithms: the sigmoid mean |d| within a
+        hundredth of one process's own bf16 distance between cuDNN on and
+        off; H100 runs read 8.5e-09 against a spread of 8.5e-03, so the
+        bar keeps four orders of margin and still catches a fault of the
+        rows at a band seam), every fused-tail window (band + 2-row halo)
+        held against the plain version;
+    (b) the CSNet-L train step, f32 SGD (momentum 0.9), B=2, 2 steps,
+        against one process at the JAX 2-D oracle's one-step bars
+        (tests/test_parallel.py:287-300): the first loss within 1e-5, the
+        penalties within rel 1e-5, every parameter and BN statistic after
+        the first step within 1e-3 * max(1, max|leaf|), the parameter
+        checksum after the second within rel 1e-4 (the multi-host oracle's
+        bar). The second loss is printed beside one process's own cuDNN
+        on-vs-off distance, not gated: after an lr-1e-3 step of the x100
+        net one f32 rounding moves it by ~3e-4 (CPU runs of this step: the
+        bands in f64 equal one process to 1e-7, in f32 3.3e-4 apart, and
+        an f64 batch norm alone moves the bands' value by 5e-4);
+    (c) the Res2Net-50 CSF micro-step at 336^2, B=1, iter_size 2, f32,
+        against one process at tests/test_parallel.py:214-228's bars: the
+        losses within rel 1e-5, the summed gradients within rtol 1e-3,
+        atol 1e-4 * max(|g|, 1);
+    (d) ``cli.csf --mode test --mesh_shape 1x2 --test_batch 2`` over 4
+        images: the PNGs within one level of one process's.
+
+    Prints the halo bytes and exchanges per forward and per step, the ms
+    per forward and step on each rank against one process, and the
+    phase's wall time. Returns the band kernel launches of (a)'s checked
+    forwards on both ranks (``spatial_launches``)."""
+    t15 = time.perf_counter()
+    lc = init_layers(40, (0.5, 0.5))
+    with tempfile.TemporaryDirectory() as tmp:
+        model = CSNet(lc, seed=0, device="cuda")
+        calib = np.random.default_rng(1).integers(0, 256, (4, *HW, 3),
+                                                  np.uint8)
+        calibrate_bn(model, normalize_u8(torch.from_numpy(calib).cuda()))
+        csf_model = he_scale(CSFNet("res2net50", seed=0, device="cpu"), 24)
+        args = {"seed": 150, "csnet": os.path.join(tmp, "csnet.pt"),
+                "csf": os.path.join(tmp, "csf.pt"),
+                "csf_ckpt": os.path.join(tmp, "csf.pth"),
+                "b_state": os.path.join(tmp, "b_state.pt"),
+                "arrays": os.path.join(tmp, "arrays.npz"),
+                "d_root": os.path.join(tmp, "d"),
+                "d_list": os.path.join(tmp, "d", "test.lst"),
+                "d_fold": os.path.join(tmp, "d_maps")}
+        torch.save(model.state_dict(), args["csnet"])
+        torch.save(csf_model.state_dict(), args["csf"])
+        save_checkpoint(args["csf_ckpt"], csf_model, None, epoch=0,
+                        arch="csf_res2net50")
+        os.makedirs(os.path.join(args["d_root"], "images"))
+        pairs = synth_pairs(len(SP_TEST_HW), hw=SP_TEST_HW[0],
+                            alternate_orientation=False, seed=16)
+        for i, (img, _) in enumerate(pairs):
+            write_png(os.path.join(args["d_root"], "images",
+                                   f"s{i}.png"), img)
+        with open(args["d_list"], "w") as f:
+            f.writelines(f"images/s{i}.png\n"
+                         for i in range(len(SP_TEST_HW)))
+
+        t0 = time.perf_counter()
+        ranks = run_dp_ranks("spatial", args, tmp)
+        two_s = time.perf_counter() - t0
+        got = ranks[0]
+        arrays = dict(np.load(args["arrays"]))
+        check(ranks[1]["b"]["losses"] == got["b"]["losses"],
+              "15b: the same (all-reduced) losses on both ranks")
+
+        # (a) one process
+        model.eval()
+        x = normalize_u8(_spatial_images(args["seed"]).cuda())
+        sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
+        one = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            with torch.no_grad():
+                one[name] = model(x.to(dtype)).float().cpu().numpy()
+            times = []
+            for _ in range(SP_TIMED):
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    model(x.to(dtype))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            a = got[f"a_{name}"]
+            check(a["tail_calls"] == CALLS_PER_FORWARD,
+                  f"15a {name}: {a['tail_calls']} tail calls on a band")
+            say(f"  15a {name}: {a['tail_calls']} tail windows per rank "
+                f"against the plain version, max |d| {a['tail_err']:.3e} "
+                f"from its range; {a['exchanges']} exchanges, "
+                f"{a['halo_bytes'] / 2**20:.3f} MiB of halo buffers per "
+                f"forward per rank; {a['ms']:.2f} / "
+                f"{ranks[1][f'a_{name}']['ms']:.2f} ms per forward on the "
+                f"ranks vs {float(np.median(times)):.2f} ms in one process "
+                f"(B={SP_BATCH})  [{gpu}]")
+        # one process's bf16 spread: the same forward without cuDNN
+        torch.backends.cudnn.enabled = False
+        with torch.no_grad():
+            bf_alt = model(x.to(torch.bfloat16)).float().cpu().numpy()
+        torch.backends.cudnn.enabled = True
+        banded = arrays["a_float32"]
+        check(banded.shape == (SP_BATCH, *HW, 1)
+              and np.isfinite(banded).all(), "15a: f32 maps' shape")
+        d_logit = float(np.abs(banded - one["float32"]).max())
+        d_sig = float(np.abs(sig(banded) - sig(one["float32"])).mean())
+        bf = arrays["a_bfloat16"]
+        bf_logit = float(np.abs(bf - one["bfloat16"]).max())
+        bf_sig = float(np.abs(sig(bf) - sig(one["bfloat16"])).mean())
+        alt_logit = float(np.abs(bf_alt - one["bfloat16"]).max())
+        alt_sig = float(np.abs(sig(bf_alt) - sig(one["bfloat16"])).mean())
+        say(f"  15a f32 bands vs one process: max |dlogit| {d_logit:.3e} "
+            f"(< 1e-3), sigmoid mean |d| {d_sig:.3e} (< 1e-5); bf16 bands "
+            f"vs one process's bf16: max |dlogit| {bf_logit:.3e}, sigmoid "
+            f"mean |d| {bf_sig:.3e} (<= {alt_sig / 100:.3e}, a hundredth of "
+            f"one process's cuDNN on vs off, {alt_sig:.3e}; its max |dlogit| "
+            f"{alt_logit:.3e})")
+        check(d_logit < 1e-3 and d_sig < 1e-5, "15a: f32 parity")
+        check(bf.shape == banded.shape and np.isfinite(bf).all()
+              and bf_sig <= alt_sig / 100, "15a: bf16 bands within a "
+              "hundredth of one process's cuDNN on-vs-off spread")
+        launches = got["spatial_launches"] + ranks[1]["spatial_launches"]
+        check(got["spatial_launches"] == 2 * CALLS_PER_FORWARD
+              and ranks[1]["spatial_launches"] == 2 * CALLS_PER_FORWARD,
+              "15a: every band tail call launched the kernel")
+        del model
+
+        # (b) one process
+        b = got["b"]
+        runs = {}
+        for cudnn in (True, False):
+            torch.backends.cudnn.enabled = cudnn
+            model = CSNet(lc, device="cuda")
+            model.load_state_dict(torch.load(args["csnet"],
+                                             map_location="cuda"))
+            step = make_train_step(model, make_sgd(model, momentum=0.9),
+                                   **PENALTY, batch_size=SP_BATCH,
+                                   from_u8=True)
+            batches = [on_card(bb) for bb in blob_batches(
+                SP_STEPS, SP_BATCH, seed=15)]
+            res, first = [], None
+            for bb in batches:
+                res.append(step(bb, LR, 1.0))
+                if first is None:
+                    first = {k: v.detach().float().cpu().clone()
+                             for k, v in model.state_dict().items()}
+            runs[cudnn] = {"losses": [r["loss"].item() for r in res],
+                           "penalties": [r["penalty"].item() for r in res],
+                           "first": first, "checksum": float(sum(
+                               p.detach().double().abs().sum()
+                               for p in model.parameters()))}
+            if cudnn:
+                one_ms = float(np.median(step_ms(step, batches[0],
+                                                 SP_TIMED)))
+            del model, step
+        torch.backends.cudnn.enabled = True
+        losses, pens = runs[True]["losses"], runs[True]["penalties"]
+        got_sd = torch.load(args["b_state"])
+        worst = max(float((got_sd[k].float() - v).abs().max())
+                    / max(1.0, float(v.abs().max()))
+                    for k, v in runs[True]["first"].items()
+                    if v.is_floating_point())
+        rel = [abs(g - w) / abs(w) for g, w in zip(b["losses"], losses)]
+        rel_c = abs(b["checksum"] - runs[True]["checksum"]) \
+            / runs[True]["checksum"]
+        eng = [abs(g - w) / abs(w) for g, w in zip(runs[False]["losses"],
+                                                   losses)]
+        say(f"  15b f32 SGD, {SP_STEPS} steps: losses {b['losses']} vs "
+            f"{losses} (rel {', '.join(f'{r:.2e}' for r in rel)}; one "
+            f"process's cuDNN off vs on: {', '.join(f'{r:.2e}' for r in eng)}"
+            f"), penalties {b['penalties']} vs {pens}, the state after "
+            f"step 1 within {worst:.2e} of max(1, max|leaf|), the "
+            f"parameter checksum after step {SP_STEPS} within rel "
+            f"{rel_c:.2e}; "
+            f"{b['exchanges']} exchanges, {b['halo_bytes'] / 2**20:.3f} "
+            f"MiB of halo buffers per step per rank; {b['ms']:.1f} / "
+            f"{ranks[1]['b']['ms']:.1f} ms per step on the ranks vs "
+            f"{one_ms:.1f} ms in one process  [{gpu}]")
+        check(abs(b["losses"][0] - losses[0]) < 1e-5,
+              "15b: first loss within 1e-5")
+        check(all(abs(g - w) <= 1e-5 * w for g, w in zip(b["penalties"],
+                                                          pens)),
+              "15b: penalties within rel 1e-5")
+        check(worst <= 1e-3, "15b: the state after step 1 within 1e-3 * "
+              "max(1, max|leaf|)")
+        check(rel_c < 1e-4, "15b: the checksum within rel 1e-4")
+
+        # (c) one process
+        c = got["c"]
+        csf_one = _csf_micro_steps(copy.deepcopy(csf_model).cuda())
+        torch.backends.cudnn.enabled = False
+        csf_alt = _csf_micro_steps(csf_model.cuda())
+        torch.backends.cudnn.enabled = True
+        want_loss = sum(csf_one["losses"])
+        got_loss = sum(c["losses"]) + sum(ranks[1]["c"]["losses"])
+
+        def bar_share(grads) -> tuple:
+            """The largest share of the JAX oracle's bar, and its tensor."""
+            worst = (0.0, "")
+            for k, g in csf_one["grads"].items():
+                bar = 1e-3 * np.abs(g) + 1e-4 * max(float(np.abs(g).max()),
+                                                    1.0)
+                worst = max(worst, (float((np.abs(grads[k] - g) / bar).max()),
+                                    k))
+            return worst
+
+        worst_g, worst_k = bar_share({k[2:]: v for k, v in arrays.items()
+                                      if k.startswith("c/")})
+        eng_g, eng_k = bar_share(csf_alt["grads"])
+        say(f"  15c CSF micro-steps at {SP_CSF_HW}^2: loss {got_loss:.6f} vs "
+            f"{want_loss:.6f}, gradients at {worst_g:.3f} of the bar over "
+            f"{len(csf_one['grads'])} tensors (worst {worst_k}; one "
+            f"process's cuDNN off vs on: {eng_g:.3f}, {eng_k}); "
+            f"{c['micro_ms']:.1f} / {ranks[1]['c']['micro_ms']:.1f} ms per "
+            f"micro-step on the ranks vs {csf_one['micro_ms']:.1f} ms in one "
+            f"process  [{gpu}]")
+        check(abs(got_loss - want_loss) <= 1e-5 * abs(want_loss),
+              "15c: loss within rel 1e-5")
+        check(worst_g <= 1.0, "15c: gradients within rtol 1e-3, atol "
+              "1e-4 * max(|g|, 1)")
+        del csf_model
+
+        # (d) one process
+        tree = {"test": args["d_root"]}
+        res_one, maps_one, _ = _csf_test(
+            tree, os.path.join(tmp, "d_one"), "cuda", "test.lst",
+            "--model", args["csf_ckpt"], "--test_batch", str(SP_TB))
+        maps = _driver_maps(args["d_fold"])
+        d_lv = _levels(maps, maps_one, "15d")
+        check(len(maps) == len(SP_TEST_HW) and d_lv <= 1,
+              f"15d: mesh maps {d_lv} levels from one process's (bar 1)")
+        say(f"  15d cli.csf test, 1 x 2 mesh: {got['d']['fps']:.2f} FPS vs "
+            f"{res_one['fps']:.2f} in one process, {d_lv} level(s) apart  "
+            f"[{gpu}]")
+    say(f"  phase 15 took {time.perf_counter() - t15:.1f} s (the two-rank "
+        f"run {two_s:.1f} s, process start included); {launches} band "
+        f"kernel launches  [{gpu}]")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -3213,6 +3645,10 @@ def main() -> None:
             phase_ab(gpu)
             say("phase 14: data parallelism (sod100k_tpu_torch.parallel)")
             dp_launches = phase_dp(gpu)
+            say("phase 15: the 2-D data x spatial mesh "
+                "(sod100k_tpu_torch.parallel.spatial), two ranks on the "
+                "card as 1 x 2")
+            spatial_launches = phase_spatial(gpu)
         except BaseException:
             proc, log, _ = trajectory
             proc.kill()
@@ -3220,7 +3656,8 @@ def main() -> None:
             log.close()
             raise
         tools_launches = finish_trajectory(trajectory, gpu)
-    say(f"  phases 13 and 14 took {time.perf_counter() - t13:.1f} s  [{gpu}]")
+    say(f"  phases 13 to 15 took {time.perf_counter() - t13:.1f} s  "
+        f"[{gpu}]")
 
     print(json.dumps({"kernels": [{
         "name": "fused_dw_chain", "route": "cuda",
@@ -3239,7 +3676,8 @@ def main() -> None:
         "slim_launches": slim_launches, "csf_launches": csf_launches,
         "cli_launches": cli_launches,
         "csf_cli_launches": csf_cli_launches,
-        "tools_launches": tools_launches, "dp_launches": dp_launches}]}))
+        "tools_launches": tools_launches, "dp_launches": dp_launches,
+        "spatial_launches": spatial_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

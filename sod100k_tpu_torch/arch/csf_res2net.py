@@ -24,6 +24,12 @@ with ``strict=True``. res2net50 and res2net101 differ only in the stage
 depths. The model builds on the card unless the caller names another
 device. ``fetch_res2net_weights`` downloads the published ImageNet
 backbones (``sod100k_tpu/arch/csf_res2net.py:246-293``).
+
+``forward(x, spatial=ctx)`` runs on row bands under a 2-D mesh
+(``parallel.spatial``): the convolutions, the stem's max pool, the
+Bottle2neck pools and the head's resizes fetch the rows they read from the
+other ranks of the spatial group, the head's group norms take each image's
+statistics over the group, and the frozen backbone BNs stay local.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from ..ops.conv import ConvWeight, conv2d
 from ..ops.goct import GOctCBR, PallMSBlock, _bn
 from ..ops.norm import batchnorm_infer
 from ..ops.resample import avg_pool_torch, max_pool_torch, resize_bilinear
+from ..parallel.spatial import SpatialCtx, like, tag
 from .csnet import count_params  # noqa: F401  (one count for both families)
 
 LAYERS = {"res2net50": (3, 4, 6, 3), "res2net101": (3, 4, 23, 3)}
@@ -51,6 +58,10 @@ PLANES = (64, 128, 256, 512)
 FUSE_IN = (256, 512, 1024, 2048)
 FUSE_OUT = (128, 256, 512, 512)
 CONV_STD = 0.01  # the reference Solver's init of every nn.Conv2d
+# the downsampling at the input of the deepest true strided conv: layer4's
+# stride-2 conv sees H/16 (``sod100k_tpu/arch/csf_res2net.py:46``); the 2-D
+# mesh's extent check keys off it (``parallel.mesh.check_spatial_extent``)
+DEEPEST_STRIDE2_FACTOR = 16
 
 
 def _dil_split(width: int) -> tuple[int, ...]:
@@ -65,8 +76,9 @@ def _width(planes: int) -> int:
     return int(math.floor(planes * (BASE_WIDTH / 64.0)))
 
 
-def _bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    return F.relu(batchnorm_infer(x, bn))
+def _bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d,
+             sp: SpatialCtx | None = None) -> torch.Tensor:
+    return like(F.relu(batchnorm_infer(x, bn)), x, sp)
 
 
 class Bottle2neck(nn.Module):
@@ -94,31 +106,37 @@ class Bottle2neck(nn.Module):
                                 device=device),
                 "2": _bn(planes * EXPANSION, device)})
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = _bn_relu(conv2d(x, self.conv1.weight), self.bn1)
-        spx = torch.split(out, self.width, dim=1)
+    def forward(self, x: torch.Tensor,
+                spatial: SpatialCtx | None = None) -> torch.Tensor:
+        ctx = spatial
+        out = _bn_relu(conv2d(x, self.conv1.weight, spatial=ctx), self.bn1,
+                       ctx)
+        spx = [like(t, out, ctx) for t in torch.split(out, self.width, dim=1)]
         cat = []
         sp = None
         for i in range(SCALE - 1):
-            sp = spx[i] if i == 0 or self.stage else sp + spx[i]
+            sp = spx[i] if i == 0 or self.stage else like(sp + spx[i], sp,
+                                                          ctx)
             sp = conv2d(sp, self.convs[i].weight, stride=self.stride,
-                        padding=1)
-            sp = _bn_relu(sp, self.bns[i])
+                        padding=1, spatial=ctx)
+            sp = _bn_relu(sp, self.bns[i], ctx)
             cat.append(sp)
-        cat.append(avg_pool_torch(spx[-1], 3, self.stride, 1)
+        cat.append(avg_pool_torch(spx[-1], 3, self.stride, 1, spatial=ctx)
                    if self.stage else spx[-1])
-        out = batchnorm_infer(conv2d(torch.cat(cat, dim=1),
-                                     self.conv3.weight), self.bn3)
+        y = like(torch.cat(cat, dim=1), cat[0], ctx)
+        out = batchnorm_infer(conv2d(y, self.conv3.weight, spatial=ctx),
+                              self.bn3)
         if self.stage:
             r = x
             if self.stride > 1:
                 r = avg_pool_torch(x, self.stride, self.stride, 0,
-                                   ceil_mode=True, count_include_pad=False)
-            r = batchnorm_infer(conv2d(r, self.downsample["1"].weight),
-                                self.downsample["2"])
+                                   ceil_mode=True, count_include_pad=False,
+                                   spatial=ctx)
+            r = batchnorm_infer(conv2d(r, self.downsample["1"].weight,
+                                       spatial=ctx), self.downsample["2"])
         else:
             r = x
-        return F.relu(out + r)
+        return like(F.relu(out + r), cat[0], ctx)
 
 
 class Res2Net(nn.Module):
@@ -144,17 +162,22 @@ class Res2Net(nn.Module):
                 inplanes = planes * EXPANSION
             self.add_module(f"layer{li + 1}", layer)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """NCHW image batch -> the four layers' features."""
-        s = self.conv1
-        x = _bn_relu(conv2d(x, s["0"].weight, stride=2, padding=1), s["1"])
-        x = _bn_relu(conv2d(x, s["3"].weight, padding=1), s["4"])
-        x = _bn_relu(conv2d(x, s["6"].weight, padding=1), self.bn1)
-        x = max_pool_torch(x, 3, 2, 1)
+    def forward(self, x: torch.Tensor,
+                spatial: SpatialCtx | None = None) -> list[torch.Tensor]:
+        """NCHW image batch (row bands under ``spatial``) -> the four
+        layers' features."""
+        s, ctx = self.conv1, spatial
+        x = _bn_relu(conv2d(x, s["0"].weight, stride=2, padding=1,
+                            spatial=ctx), s["1"], ctx)
+        x = _bn_relu(conv2d(x, s["3"].weight, padding=1, spatial=ctx),
+                     s["4"], ctx)
+        x = _bn_relu(conv2d(x, s["6"].weight, padding=1, spatial=ctx),
+                     self.bn1, ctx)
+        x = max_pool_torch(x, 3, 2, 1, spatial=ctx)
         feats = []
         for li in range(len(PLANES)):
             for block in getattr(self, f"layer{li + 1}"):
-                x = block(x)
+                x = block(x, ctx)
             feats.append(x)
         return feats
 
@@ -198,12 +221,23 @@ class CSFNet(nn.Module):
                 if m.bias is not None:
                     m.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC image batch -> NHWC saliency logits at the input size."""
-        feats = self.base(x.permute(0, 3, 1, 2).contiguous())
-        y = self.fuse1x1(self.ms(self.fuse(feats)))
-        logits = conv2d(y[0], self.cls_layer.weight, self.cls_layer.bias)
-        return resize_bilinear(logits, x.shape[1:3]).permute(0, 2, 3, 1)
+    def forward(self, x: torch.Tensor,
+                spatial: SpatialCtx | None = None) -> torch.Tensor:
+        """NHWC image batch -> NHWC saliency logits at the input size.
+        Under ``spatial``, ``x`` and the result are this rank's row bands
+        of images of height ``spatial.image_h``."""
+        sp = spatial
+        img = x.permute(0, 3, 1, 2).contiguous()
+        hw = x.shape[1:3]
+        if sp is not None:
+            hw = (sp.image_h, x.shape[2])
+            tag(img, sp.image_h)
+        feats = self.base(img, sp)
+        y = self.fuse1x1(self.ms(self.fuse(feats, None, sp), None, sp),
+                         None, sp)
+        logits = conv2d(y[0], self.cls_layer.weight, self.cls_layer.bias,
+                        spatial=sp)
+        return resize_bilinear(logits, hw, sp).permute(0, 2, 3, 1)
 
 
 # Published ImageNet weights (reference csf_res2net.py:15-18). The filename

@@ -20,6 +20,12 @@ dynamic-weight-decay signal (``ops.goct.GapCollector``), as the JAX package
 never routes a collecting forward through the kernel.
 
 The model builds on the card unless the caller names another device.
+
+``forward(x, gap, spatial=ctx)`` runs on row bands under a 2-D mesh
+(``parallel.spatial``): ``x`` is this rank's band of the images' rows and
+the result its band of the logits; every spatial op fetches the rows it
+reads from the other ranks of the spatial group, and the eval tail runs
+the kernel on band + halo (``ops.dw_chain.fused_dw_chain_band``).
 """
 
 from __future__ import annotations
@@ -31,9 +37,15 @@ from ..ops.conv import ConvWeight, conv2d, init_conv_
 from ..ops.dw_chain import TailPacks, dw_tail_fused
 from ..ops.goct import GapCollector, GOctCBR, PallMSBlock, SimplifiedGOctCBR
 from ..ops.resample import resize_bilinear
+from ..parallel.spatial import SpatialCtx, tag
 from .layer_config import BlockPlan, Entry, LayerConfig
 
 STAGES = ("stage0", "stage1", "stage2", "stage3", "stage4")
+# the downsampling at the input of the deepest true strided conv: stages
+# 2-4 open with stride-2 single-branch CBRs, so the stage-4 opener sees
+# H/4 (``sod100k_tpu/arch/csnet.py:34``); the 2-D mesh's extent check
+# keys off it (``parallel.mesh.check_spatial_extent``)
+DEEPEST_STRIDE2_FACTOR = 4
 
 
 class ILBlock(nn.Module):
@@ -60,12 +72,14 @@ class ILBlock(nn.Module):
         self.tail_packs = TailPacks()
         super()._load_from_state_dict(*args, **kwargs)
 
-    def forward(self, xset: list, gap: GapCollector | None = None) -> list:
-        y = self.conv1x1(xset, gap)
+    def forward(self, xset: list, gap: GapCollector | None = None,
+                spatial: SpatialCtx | None = None) -> list:
+        y = self.conv1x1(xset, gap, spatial)
         if not self.training:
             return dw_tail_fused(
-                y, self.tail_packs.get(self.conv3x3_1, self.conv3x3_2))
-        return self.conv3x3_2(self.conv3x3_1(y, gap), gap)
+                y, self.tail_packs.get(self.conv3x3_1, self.conv3x3_2),
+                spatial)
+        return self.conv3x3_2(self.conv3x3_1(y, gap, spatial), gap, spatial)
 
 
 class CSFHead(nn.Module):
@@ -78,8 +92,10 @@ class CSFHead(nn.Module):
         self.ms = PallMSBlock(ms.in_split, ms.dil_split, device=device)
         self.fuse1x1 = GOctCBR(f1.in_split, f1.out_split, 1, device=device)
 
-    def forward(self, xset: list, gap: GapCollector | None = None) -> list:
-        return self.fuse1x1(self.ms(self.fuse(xset, gap), gap), gap)
+    def forward(self, xset: list, gap: GapCollector | None = None,
+                spatial: SpatialCtx | None = None) -> list:
+        return self.fuse1x1(self.ms(self.fuse(xset, gap, spatial), gap,
+                                    spatial), gap, spatial)
 
 
 class CSNet(nn.Module):
@@ -104,23 +120,31 @@ class CSNet(nn.Module):
             if isinstance(m, ConvWeight):
                 init_conv_(m, gen)
 
-    def forward(self, x: torch.Tensor,
-                gap: GapCollector | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gap: GapCollector | None = None,
+                spatial: SpatialCtx | None = None) -> torch.Tensor:
         """NHWC image batch -> NHWC saliency logits at the input size;
-        a train-mode forward records the penalty's signal in ``gap``."""
+        a train-mode forward records the penalty's signal in ``gap``.
+        Under ``spatial``, ``x`` and the result are this rank's row bands
+        of images of height ``spatial.image_h``."""
         if gap is not None and not self.training:
             raise ValueError("the penalty's signal is collected by a "
                              "train-mode forward only")
+        sp = spatial
         feat = [x.permute(0, 3, 1, 2).contiguous()]
+        hw = x.shape[1:3]
+        if sp is not None:
+            hw = (sp.image_h, x.shape[2])
+            tag(feat[0], sp.image_h)
         ends = {}
         for name in STAGES:
             for block in getattr(self, name):
-                feat = block(feat, gap)
+                feat = block(feat, gap, sp)
             ends[name] = feat
         y = self.oct_fuse([ends["stage2"][0], ends["stage3"][0],
-                           ends["stage4"][0]], gap)
-        logits = conv2d(y[0], self.cls_layer.weight, self.cls_layer.bias)
-        return resize_bilinear(logits, x.shape[1:3]).permute(0, 2, 3, 1)
+                           ends["stage4"][0]], gap, sp)
+        logits = conv2d(y[0], self.cls_layer.weight, self.cls_layer.bias,
+                        spatial=sp)
+        return resize_bilinear(logits, hw, sp).permute(0, 2, 3, 1)
 
 
 def count_params(model: nn.Module) -> int:

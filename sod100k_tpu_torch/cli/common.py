@@ -11,11 +11,16 @@ Architecture snapshots are the reference's pickled layer_config .bin files.
 Every function that touches tensors takes the device it runs on; the
 drivers pass the card unless a caller (a test) names the CPU.
 
-Data parallelism (``parallel/``): every driver calls ``init_data_parallel``
-first, which joins the processes the SOD100K_* variables (or torchrun's)
-describe and gives each rank its own card. The primary alone writes logs,
-architecture snapshots and checkpoints; the others wait at a barrier
-before they read what it wrote.
+Parallelism (``parallel/``): every driver calls ``init_data_parallel`` or
+``init_parallel`` first, which joins the processes the SOD100K_* variables
+(or torchrun's) describe, gives each rank its own card and returns the
+run's mesh (``parallel.mesh.Mesh2D``): the W x 1 data mesh of the world,
+or the D x S mesh of CUDA.MESH_SHAPE "DxS", the batch over D and each
+image's rows over S (``parallel.spatial``), with the JAX drivers' refusals
+(``sod100k_tpu``'s ``cli/common.py::data_mesh_for``). The resident
+programs do not run on a spatial axis yet: ``refuse_resident_mesh`` says
+so. The primary alone writes logs, architecture snapshots and
+checkpoints; the others wait at a barrier before they read what it wrote.
 """
 
 from __future__ import annotations
@@ -41,17 +46,81 @@ from ..utils.profiler import FLOP_COUNTER, simplesum
 PREPROCESS_MODES = ("host", "hybrid", "device", "resident")
 
 
-def init_data_parallel(device, log=print) -> tuple[torch.device, object]:
+RESIDENT_MESH_LATER = (
+    "is not ported to the 2-D mesh yet: it is the next slice of the port "
+    "(ROADMAP.md, Queue A: the resident programs under a 2-D mesh). Drop "
+    "the mesh shape, or use a host, hybrid or device front-end")
+
+
+def refuse_resident_mesh(mesh_flag: str, what: str) -> None:
+    """The boundary of the 2-D mesh: a resident program with a mesh exits
+    (nothing runs on one rank in its place)."""
+    raise SystemExit(f"{mesh_flag} with {what} {RESIDENT_MESH_LATER}")
+
+
+def build_mesh_2d(spec: str, flag: str, *, batch_size: int, batch_flag: str,
+                  image_h: int = 0, stride2_factor: int = 0,
+                  what: str = "model", log=print) -> mesh.Mesh2D:
+    """The D x S mesh of ``spec`` over the world that
+    ``init_data_parallel`` joined, with the JAX drivers' refusals, each a
+    SystemExit naming ``flag``: a malformed shape, a data axis that does
+    not divide the batch, the spatial extent check (where ``image_h`` and
+    ``stride2_factor`` are known), a world that is not D*S processes, and a
+    spatial group across hosts."""
+    try:
+        d, s = mesh.parse_mesh_shape(spec)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if batch_size % d:
+        raise SystemExit(f"{flag}: data axis {d} must divide "
+                         f"{batch_flag}={batch_size}")
+    if image_h and stride2_factor:
+        try:
+            mesh.check_spatial_extent(image_h, stride2_factor, s, what)
+        except ValueError as e:
+            raise SystemExit(f"{flag}: {e}")
+    try:
+        m = mesh.make_mesh_2d(d, s)
+        multihost.check_mesh_process_layout(m)
+    except ValueError as e:
+        raise SystemExit(f"{flag}: {e}")
+    if d * s > 1:
+        log(f"mesh: {d} data x {s} spatial processes")
+    return m
+
+
+def init_parallel(cfg, device, log=print, *, image_h: int,
+                  stride2_factor: int, resident: str = ""):
+    """``init_data_parallel``, then the 2-D mesh when CUDA.MESH_SHAPE asks
+    for one (DATA.BATCH_SIZE over its data axis, images of ``image_h``
+    rows over its spatial axis). ``resident`` names the resident setting
+    the run uses, if any, which a mesh refuses before anything starts.
+    Returns (device, the mesh: the data mesh without CUDA.MESH_SHAPE)."""
+    if cfg.CUDA.MESH_SHAPE and resident:
+        refuse_resident_mesh(f"CUDA.MESH_SHAPE={cfg.CUDA.MESH_SHAPE}",
+                             resident)
+    device, m = init_data_parallel(device, log)
+    if cfg.CUDA.MESH_SHAPE:
+        m = build_mesh_2d(cfg.CUDA.MESH_SHAPE,
+                          f"CUDA.MESH_SHAPE={cfg.CUDA.MESH_SHAPE}",
+                          batch_size=max(cfg.DATA.BATCH_SIZE, 1),
+                          batch_flag="DATA.BATCH_SIZE", image_h=image_h,
+                          stride2_factor=stride2_factor, log=log)
+    return device, m
+
+
+def init_data_parallel(device, log=print) -> tuple[torch.device,
+                                                   mesh.Mesh2D]:
     """Join the data-parallel world the environment describes (no-op
     without it; ``parallel.multihost.init_from_env``) before anything
     touches the card. Returns the device this process runs on (its own
-    card when the caller asked for the card) and the data group (None for
-    a single process)."""
+    card when the caller asked for the card) and the world's data mesh
+    (W x 1; 1 x 1 for a single process)."""
     multihost.init_from_env(log)
     device = require_device(device)
     if device.type == "cuda" and multihost.is_multihost():
         device = mesh.local_device()
-    return device, mesh.data_group()
+    return device, mesh.data_mesh()
 
 
 class Logger:
@@ -189,13 +258,17 @@ class TrainFeeds:
     uploaded once. ``epoch`` runs one epoch of ``step``; ``validate``
     scores the model's val MAE (nan without VAL.DIR).
 
-    Under data parallelism (``group``) DATA.BATCH_SIZE is the global
-    batch: every rank draws the same global batches and trains on its
-    rows; the resident validation splits its batches over the ranks, the
-    host one runs whole on every rank (the same number everywhere)."""
+    On a ``mesh`` (``parallel.mesh.Mesh2D``) DATA.BATCH_SIZE is the global
+    batch: every rank draws the same global batches and trains on its data
+    index's rows and, under a spatial axis, its band of their rows (the
+    device front-end cuts the band after its resize). The resident
+    validation splits its batches over the ranks; the host one runs every
+    batch on every rank (the same number everywhere), each spatial rank on
+    its band (``make_eval_step(mesh=...)``). ``init_parallel`` refuses the
+    resident mode with a spatial axis."""
 
     def __init__(self, cfg, step, model: nn.Module, device, log, *,
-                 resident_seed: int, tag: str, group=None):
+                 resident_seed: int, tag: str, mesh=None):
         from ..data.resident import (build_resident_dataset,
                                      build_resident_val_dataset,
                                      make_resident_epoch_fn,
@@ -203,7 +276,7 @@ class TrainFeeds:
         from ..train.step import make_eval_step
 
         self.cfg, self.step, self.device, self.log = cfg, step, device, log
-        self.group = group
+        self.mesh = mesh
         self.mode = check_preprocess(cfg)
         self.resident_seed, self.tag = resident_seed, tag
         self.hw = (cfg.DATA.IMAGE_H, cfg.DATA.IMAGE_W)
@@ -214,7 +287,7 @@ class TrainFeeds:
                        if cfg.VAL.DIR else None)
         # validation always scores in f32, whatever CUDA.DTYPE, so the best
         # epoch does not move between preprocess modes
-        self.eval_step = make_eval_step(model)
+        self.eval_step = make_eval_step(model, mesh=mesh)
         self.resident = self.resident_val = None
         if self.mode != "resident":
             return
@@ -232,7 +305,7 @@ class TrainFeeds:
         max_crop = max(1, round(15 * store / 224))
         self.epoch_fn = make_resident_epoch_fn(
             step, batch_size=batch, out_hw=self.hw, max_crop=max_crop,
-            group=group)
+            mesh=mesh)
         log(f"resident dataset: {len(self.train_ds)} images @{store}px "
             f"uint8 = {_mib(self.resident):.0f} MiB on {device}")
         if self.val_ds is not None:
@@ -242,7 +315,7 @@ class TrainFeeds:
             self.resident_val = vdata
             self.val_fn = make_resident_val_fn(
                 make_eval_step(model, from_u8=True), batch_size=batch,
-                canvas_hw=canvas_hw, group=group)
+                canvas_hw=canvas_hw, mesh=mesh)
             log(f"resident val set: {len(self.val_ds)} images, native "
                 f"canvas {canvas_hw}, {_mib(vdata):.0f} MiB on {device}")
 
@@ -277,10 +350,12 @@ class TrainFeeds:
 
         gen = torch.Generator(self.device).manual_seed(
             cfg.CUDA.SEED * 1_000_003 + epoch)
-        rows = mesh.row_slice(cfg.DATA.BATCH_SIZE, self.group)
+        m2 = self.mesh
+        rows = multihost.process_slice(cfg.DATA.BATCH_SIZE, m2)
         nb, m = 0, None
         for batch in device_prefetch(self._iterator(epoch),
-                                     device=self.device):
+                                     device=self.device, mesh=m2,
+                                     bands=self.mode != "device"):
             if self.mode == "device":
                 # the draws of the global batch, then this rank's rows
                 d = draw_augment_params(gen, cfg.DATA.BATCH_SIZE)
@@ -288,6 +363,9 @@ class TrainFeeds:
                     batch["image_u8"], batch["gt_u8"], batch["valid_hw"],
                     draws={k: v[rows] for k, v in d.items()},
                     out_hw=self.hw)
+                if m2 is not None and m2.spatial > 1:
+                    lo, hi = m2.band(self.hw[0])
+                    feed = {k: v[:, lo:hi] for k, v in feed.items()}
             elif self.mode == "hybrid":
                 feed = {"image": batch["image_u8"],
                         "target": batch["target_u8"]}

@@ -24,9 +24,20 @@ variables or torchrun's (``parallel.multihost``): --batch_size is the
 global batch, each rank trains on its rows and the gradients are summed
 over the ranks once per optimizer apply; it needs a fixed --image_size
 or --preprocess resident (the native-size buckets are ragged).
---mesh_devices N checks that the world holds N processes (0: any). Test
-mode is single-process. The JAX driver's 2-D --mesh_shape is GSPMD's and
-not part of this port.
+--mesh_devices N checks that the world holds N processes (0: any).
+--mesh_shape DxS makes the D*S processes a 2-D mesh: the batch over D and
+each image's rows over S (``parallel.spatial``), the lever for the
+reference's batch-1 x iter_size-10 recipe, where data parallelism alone
+cannot use a second card. It needs a fixed --image_size like every
+multi-process run, so the JAX driver's per-bucket fallback to a data-only
+layout (for bucket heights its extent check refuses) does not arise here;
+--preprocess resident with a mesh is refused (the next slice).
+
+Test mode runs on one process, or across the world: --test_batch
+dispatches split over the processes (1-D, --mesh_devices: each rank its
+rows), or over a 2-D --mesh_shape (rows over D, each image's rows over S;
+an image height the extent check refuses runs whole on each spatial
+rank). The primary writes the same PNGs as one process.
 
 Solver semantics (solver.py): frozen-BN backbone, Adam 5e-5 with coupled
 L2 5e-4 over the trainable parameters, gradients summed over iter_size
@@ -45,12 +56,11 @@ import time
 import numpy as np
 import torch
 
-from ..arch.csf_res2net import (CSFNet, fetch_res2net_weights,
-                                load_res2net_backbone)
+from ..arch.csf_res2net import (DEEPEST_STRIDE2_FACTOR, CSFNet,
+                                fetch_res2net_weights, load_res2net_backbone)
 from ..data.csf_dataset import (CSFTestData, CSFTrainData,
                                 fixed_size_batches, padded_batches)
 from ..data.image_io import write_png
-from ..data.pipeline import require_device
 from ..data.resident import build_resident_dataset, make_resident_csf_epoch_fn
 from ..interop.torch_ckpt import load_checkpoint
 from ..parallel import mesh, multihost
@@ -58,7 +68,8 @@ from ..train.checkpoint import save_checkpoint
 from ..train.csf_step import (CSFTrainStep, freeze_reference_params,
                               make_csf_optimizer)
 from ..train.step import make_eval_step
-from .common import init_data_parallel, model_device
+from .common import (build_mesh_2d, init_data_parallel, model_device,
+                     refuse_resident_mesh)
 
 LR_DECAY_EPOCH = (15,)  # solver.py:24
 
@@ -127,35 +138,53 @@ def _epoch_batches(dataset: CSFTrainData, config, epoch: int):
     return padded_batches(dataset, config.batch_size, seed=epoch)
 
 
-def _check_world(config) -> None:
-    """The data-parallel CSF recipe's preconditions (JAX ``cli/csf.py:
-    178-188``): --mesh_devices, when given, is the world's size, the global
-    batch divides over it, and the feed has a fixed size."""
-    world = mesh.world_size()
-    want = getattr(config, "mesh_devices", 0) or 0
-    if want and want != world:
-        raise SystemExit(
-            f"--mesh_devices {want}: the data-parallel world holds {world} "
-            f"process(es), one per card (check the SOD100K_* variables or "
-            f"torchrun's --nproc-per-node)")
-    if world == 1:
-        return
-    if config.batch_size % world:
-        raise SystemExit(
-            f"multi-host CSF runs need --batch_size ({config.batch_size}) "
-            f"to divide evenly over the {world} processes")
-    if not config.image_size and \
-            getattr(config, "preprocess", "host") != "resident":
-        raise SystemExit(
-            "multi-host CSF training needs a fixed --image_size (the "
-            "native-size bucketed batches are ragged per bucket and cannot "
-            "be sliced evenly across processes)")
+def _mesh_shape(config) -> str:
+    return getattr(config, "mesh_shape", "") or ""
+
+
+def _csf_mesh(config, *, batch_size: int, batch_flag: str, image_h: int = 0,
+              log=print) -> mesh.Mesh2D:
+    """The mesh a CSF run splits over: the 2-D --mesh_shape, else the data
+    mesh of the world (W x 1; 1 x 1 for one process), whose size
+    --mesh_devices, when given, must be (JAX ``cli/csf.py:178-188``).
+    ``batch_size`` divides over the data axis; ``image_h`` (train mode)
+    takes the spatial extent check."""
+    spec = _mesh_shape(config)
+    flag = f"--mesh_shape {spec}"
+    if not spec:
+        world = mesh.world_size()
+        want = getattr(config, "mesh_devices", 0) or 0
+        if want and want != world:
+            raise SystemExit(
+                f"--mesh_devices {want}: the data-parallel world holds "
+                f"{world} process(es), one per card (check the SOD100K_* "
+                f"variables or torchrun's --nproc-per-node)")
+        spec, flag = f"{world}x1", f"--mesh_devices {world}"
+    return build_mesh_2d(spec, flag, batch_size=batch_size,
+                         batch_flag=batch_flag, image_h=image_h,
+                         stride2_factor=DEEPEST_STRIDE2_FACTOR, what="CSF",
+                         log=log)
 
 
 def run_csf_train(config, log=print, *,
                   device: str | torch.device = "cuda") -> dict:
-    device, group = init_data_parallel(device, log)
-    _check_world(config)
+    spec = _mesh_shape(config)
+    resident = getattr(config, "preprocess", "host") == "resident"
+    if spec and resident:
+        refuse_resident_mesh(f"--mesh_shape {spec}", "--preprocess resident")
+    device, _ = init_data_parallel(device, log)
+    mesh2d = _csf_mesh(config, batch_size=config.batch_size,
+                       batch_flag="--batch_size", image_h=config.image_size,
+                       log=log)
+    group = mesh2d.world
+    # the native-size bucketed batches are ragged per bucket: they cannot
+    # be cut into rows or bands (resident epochs draw fixed-size batches)
+    if not config.image_size and (spec or (group and not resident)):
+        what = f"--mesh_shape {spec}" if spec else "multi-host CSF training"
+        raise SystemExit(
+            f"{what} needs a fixed --image_size (the native-size bucketed "
+            f"batches are ragged per bucket and cannot be sliced across "
+            f"processes)")
     run = 0
     while os.path.exists(os.path.join(config.save_folder, f"run-{run}")):
         run += 1
@@ -178,10 +207,10 @@ def run_csf_train(config, log=print, *,
                         iter_size=config.iter_size,
                         batch_size=config.batch_size,
                         compute_dtype=compute_dtype,
-                        remat=getattr(config, "remat", False), group=group)
+                        remat=getattr(config, "remat", False),
+                        mesh=mesh2d, image_h=config.image_size)
     dataset = CSFTrainData(config.train_root, config.train_list)
 
-    resident = getattr(config, "preprocess", "host") == "resident"
     if resident:
         if not config.image_size:
             raise SystemExit("--preprocess resident needs a fixed "
@@ -201,7 +230,7 @@ def run_csf_train(config, log=print, *,
             f"{config.image_size}^2 = {nbytes / 2**20:.0f} MiB on "
             f"{device.type}")
         epoch_fn = make_resident_csf_epoch_fn(
-            step, batch_size=config.batch_size, group=group)
+            step, batch_size=config.batch_size, mesh=mesh2d)
 
     def save(name: str, epoch: int) -> None:
         save_checkpoint(os.path.join(save_folder, "models", name), model,
@@ -232,8 +261,8 @@ def run_csf_train(config, log=print, *,
             micro = images = 0
             for batch in _epoch_batches(dataset, config, epoch):
                 images += batch["image"].shape[0]
-                pending.append(step(multihost.local_slice_feed(batch),
-                                    lr)["loss"])
+                pending.append(step(multihost.local_slice_feed(
+                    batch, mesh=mesh2d), lr)["loss"])
                 micro += 1
                 if micro % show == 0:
                     # the ranks' shares summed: the global batch's loss
@@ -271,26 +300,53 @@ def _to_host(preds: torch.Tensor):
 
 def run_csf_test(config, log=print, *,
                  device: str | torch.device = "cuda") -> dict:
-    multihost.init_from_env(log)
-    if multihost.is_multihost():
-        raise SystemExit(
-            "CSF test mode is single-host (per-image PNG writes don't "
-            "shard across processes); run it on one host")
     if not config.model or not config.test_fold:
         raise SystemExit("--mode test needs --model and --test_fold")
-    model = CSFNet(config.arch, device=require_device(device))
-    _merge_checkpoint(model, config.model)
-    # u8 in, u8 out: raw pixels in (normalized on the device), trunc(
-    # sigmoid * 255) out, which is the reference's (255 * sigmoid).astype(
-    # uint8) since the map is written at native size
-    eval_step = make_eval_step(model, from_u8=True, quantize_u8=True,
-                               compute_dtype=_compute_dtype(config))
-    dataset = CSFTestData(config.test_root, config.test_list)
-    os.makedirs(config.test_fold, exist_ok=True)
+    if _mesh_shape(config) and \
+            getattr(config, "preprocess", "host") == "resident":
+        refuse_resident_mesh(f"--mesh_shape {_mesh_shape(config)}",
+                             "--preprocess resident")
+    multihost.init_from_env(log)
     # --test_batch > 1: consecutive same-shape images share a forward; a
     # trailing partial batch is padded with its last image, whose extra
     # maps are dropped
     tb = max(getattr(config, "test_batch", 1) or 1, 1)
+    m = _csf_mesh(config, batch_size=tb, batch_flag="--test_batch", log=log)
+    device, _ = init_data_parallel(device, log)
+    model = CSFNet(config.arch, device=device)
+    _merge_checkpoint(model, config.model)
+    # u8 in, u8 out: raw pixels in (normalized on the device), trunc(
+    # sigmoid * 255) out, which is the reference's (255 * sigmoid).astype(
+    # uint8) since the map is written at native size
+    kw = dict(from_u8=True, quantize_u8=True,
+              compute_dtype=_compute_dtype(config))
+    whole_step = make_eval_step(model, **kw)
+    band_step = (make_eval_step(model, mesh=m, **kw)
+                 if m.spatial > 1 else None)
+    rows = m.rows(tb)
+    whole_heights = set()  # heights the extent check keeps whole
+
+    def eval_step(x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the dispatch, on its band where the height
+        passes the extent check; every row back on every rank."""
+        step = whole_step
+        if band_step is not None:
+            try:
+                mesh.check_spatial_extent(x.shape[1], DEEPEST_STRIDE2_FACTOR,
+                                          m.spatial, "CSF")
+                step = band_step
+            except ValueError as e:
+                if x.shape[1] not in whole_heights:
+                    whole_heights.add(x.shape[1])
+                    log(f"--mesh_shape {m.shape}: images of height "
+                        f"{x.shape[1]} run whole on each of the {m.spatial} "
+                        f"spatial ranks ({e})")
+        return mesh.gather_rows(step(x[rows]), m.data_group)
+
+    dataset = CSFTestData(config.test_root, config.test_list)
+    primary = multihost.is_primary()
+    if primary:
+        os.makedirs(config.test_fold, exist_ok=True)
     t0 = time.time()
 
     # one-deep pipeline: batch k's readback and PNG writes run while the
@@ -299,6 +355,8 @@ def run_csf_test(config, log=print, *,
         names, (host, done), k = pending
         if done is not None:
             done.synchronize()
+        if not primary:
+            return
         for name, out in zip(names, host.numpy()[:k, ..., 0]):
             name = os.path.splitext(os.path.basename(name))[0]
             write_png(os.path.join(config.test_fold, name + "_sal_fuse.png"),
@@ -331,6 +389,7 @@ def run_csf_test(config, log=print, *,
         dispatch()
     if pending is not None:
         flush(pending)
+    multihost.barrier("csf-maps-written")  # readers see every map
     dt = time.time() - t0
     log("Speed: %f FPS" % (len(dataset) / dt))
     log("Test Done!")
@@ -378,10 +437,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "same-shape images per forward (meant for "
                              "uniform-size lists like --sal_mode m_r)")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="training: the number of data-parallel "
-                             "processes (one per card) the run expects; "
-                             "0 = whatever the SOD100K_* or torchrun "
-                             "variables launched")
+                        help="the number of data-parallel processes (one "
+                             "per card) the run expects; 0 = whatever the "
+                             "SOD100K_* or torchrun variables launched")
+    parser.add_argument("--mesh_shape", type=str, default="",
+                        help="DxS: a 2-D mesh of D*S processes, the batch "
+                             "(--batch_size, --test_batch) over D and each "
+                             "image's rows over S; training needs a fixed "
+                             "--image_size")
     parser.add_argument("--preprocess", type=str, default="host",
                         choices=["host", "resident"],
                         help="resident = upload the uint8 dataset to the "

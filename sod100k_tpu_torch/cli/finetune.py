@@ -18,7 +18,8 @@ vs :165-173, so the rebuilt model's tensors were never registered with it).
 
 Data parallelism as in ``cli.train``: one process per card from the
 SOD100K_* variables or torchrun's, DATA.BATCH_SIZE global, the primary
-writes.
+writes; CUDA.MESH_SHAPE runs it, its validation and its periodic test on
+the 2-D data x spatial mesh, as ``cli.train``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from ..arch import get_arch
 from ..arch.layer_config import LayerConfig
+from ..arch.csnet import DEEPEST_STRIDE2_FACTOR
 from ..config import get_cfg
 from ..parallel import mesh, multihost
 from ..prune.finetune import build_pruned_csnet, prune
@@ -38,12 +40,16 @@ from ..train.optim import cosine_lr, make_adam, make_sgd, multistep_lr
 from ..train.step import make_train_step
 from ..utils.profiler import count_params
 from .common import (Logger, TrainFeeds, check_preprocess, compute_dtype,
-                     init_data_parallel, load_any_checkpoint, resolve_dirs)
+                     init_parallel, load_any_checkpoint, resolve_dirs)
 
 
 def run_finetune(cfg, from_epoch: int, max_epochs: int | None = None,
                  log=None, *, device: str | torch.device = "cuda") -> dict:
-    device, group = init_data_parallel(device, log or print)
+    device, mesh2d = init_parallel(
+        cfg, device, log or print, image_h=cfg.DATA.IMAGE_H,
+        stride2_factor=DEEPEST_STRIDE2_FACTOR,
+        resident=("CUDA.PREPROCESS=resident"
+                  if cfg.CUDA.PREPROCESS == "resident" else ""))
     dirs = resolve_dirs(cfg)
     if log is None:
         log = Logger(dirs["base"], "logfinetune", dirs["task"])
@@ -64,7 +70,8 @@ def run_finetune(cfg, from_epoch: int, max_epochs: int | None = None,
     if multihost.is_primary():
         lc.save(os.path.join(dirs["layer_configs"],
                              f"layer_config_finetune_{from_epoch}.bin"))
-    model = mesh.replicate(build_pruned_csnet(lc, sd, device=device), group)
+    model = mesh.replicate(build_pruned_csnet(lc, sd, device=device),
+                           mesh2d.world)
     log("  + Number of params after: %.4fM" % (count_params(model) / 1e6))
 
     sol = cfg.FINETUNE.SOLVER
@@ -77,9 +84,10 @@ def run_finetune(cfg, from_epoch: int, max_epochs: int | None = None,
     step = make_train_step(
         model, optimizer, flops_weight=0.0, batch_size=cfg.DATA.BATCH_SIZE,
         compute_dtype=compute_dtype(cfg),
-        from_u8=preprocess == "hybrid", group=group)
+        from_u8=preprocess == "hybrid", mesh=mesh2d,
+        image_h=cfg.DATA.IMAGE_H)
     feeds = TrainFeeds(cfg, step, model, device, log,
-                       resident_seed=7_777_771, tag="FtEpoch", group=group)
+                       resident_seed=7_777_771, tag="FtEpoch", mesh=mesh2d)
     ft_dir = os.path.join(dirs["base"],
                           f"finetune_checkpoint_epoch{from_epoch}")
     os.makedirs(ft_dir, exist_ok=True)
@@ -107,7 +115,7 @@ def run_finetune(cfg, from_epoch: int, max_epochs: int | None = None,
 
             log("Start testing.")
             dump_saliency_maps(cfg, model, epoch + 1, log=log,
-                               dir_prefix="finetune_")
+                               dir_prefix="finetune_", mesh2d=mesh2d)
         if mae < best_mae:
             best_mae, best_epoch = mae, epoch + 1
         log(f" epoch: {epoch + 1} mae: {mae} best_epoch: {best_epoch} "

@@ -18,8 +18,11 @@ Reference flow: train.py -> finetune.py --epoch N -> test.py -> eval.py
 Under the SOD100K_* variables (or torchrun's) the chain runs data-parallel
 on the 1-D group, one process per card: every process is given the same
 --save-dir, the primary writes the synthetic tree and the outputs, and
-eval runs on the primary. The JAX driver's 2-D --mesh_shape is GSPMD's and
-not part of this port.
+eval runs on the primary. The JAX driver's --mesh_shape runs this chain,
+its resident TESTALL sweep included, on the 2-D data x spatial mesh; the
+port's drivers run on that mesh (CUDA.MESH_SHAPE) but its resident
+programs do not yet, so --mesh_shape here is refused: it is the next slice
+(ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -189,7 +192,15 @@ def main(argv=None) -> None:
     ap.add_argument("--save-dir", default=None)
     ap.add_argument("--train-epochs", type=int, default=2)
     ap.add_argument("--image-hw", type=int, default=64)
+    ap.add_argument("--mesh_shape", default="",
+                    help="the JAX driver's 2-D mesh; refused here until "
+                    "the resident sweep runs on it")
     args = ap.parse_args(argv)
+    if args.mesh_shape:
+        from .common import refuse_resident_mesh
+
+        refuse_resident_mesh(f"--mesh_shape {args.mesh_shape}",
+                             "the smoke chain's resident TESTALL sweep")
     if not args.data_root and not args.dry_data and not args.fetch:
         raise SystemExit("pass --data-root DIR, --dry-data, or --fetch NAME")
     from ..parallel import multihost

@@ -21,6 +21,13 @@ Under data parallelism (one process per card, as ``cli.train``) each
 fixed-size batch is split over the ranks and the primary writes every map;
 the ceil-to-16 mode runs on the primary alone; the resident sweep splits
 its batches over the ranks and every rank logs the whole table.
+
+With CUDA.MESH_SHAPE "DxS" each fixed-size batch splits its rows over the
+D data indices and each image's rows over the S spatial indices; the bands
+are gathered into whole maps before the PNG writes (the S-measure and
+weighted F are not sums over pixels), and the primary writes. The
+ceil-to-16 mode still runs on the primary alone; the resident sweep is
+refused with a mesh (the next slice).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 from torch import nn
 
 from ..arch import get_arch
+from ..arch.csnet import DEEPEST_STRIDE2_FACTOR
 from ..arch.layer_config import LayerConfig
 from ..config import get_cfg
 from ..data.image_io import resize_u8_linear, write_png
@@ -44,19 +52,22 @@ from ..data.pipeline import (_imread_rgb_u8, preprocess_test_image,
 from ..parallel import mesh, multihost
 from ..train.step import make_eval_step
 from ..utils.profiler import count_params
-from .common import (compute_dtype, init_data_parallel, load_any_checkpoint,
-                     model_device)
+from .common import (compute_dtype, init_data_parallel, init_parallel,
+                     load_any_checkpoint, model_device, refuse_resident_mesh)
 
 
 def run_test(cfg, log=print, *, device: str | torch.device = "cuda") -> dict:
-    device, _ = init_data_parallel(device, log)
+    device, mesh2d = init_parallel(
+        cfg, device, log, image_h=cfg.TEST.IMAGE_H,
+        stride2_factor=DEEPEST_STRIDE2_FACTOR)
     lc = LayerConfig.load(cfg.TEST.MODEL_CONFIG)
     model = get_arch(cfg.MODEL.ARCH)(lc, device=device)
     epoch, _ = load_any_checkpoint(cfg.TEST.CHECKPOINT, model)
     log(f"=> loaded checkpoint '{cfg.TEST.CHECKPOINT}' (epoch {epoch})")
     log("  + Number of params: %.4fM" % (count_params(model) / 1e6))
     return {"epoch": epoch,
-            "datasets": dump_saliency_maps(cfg, model, epoch, log=log)}
+            "datasets": dump_saliency_maps(cfg, model, epoch, log=log,
+                                           mesh2d=mesh2d)}
 
 
 def _save_map(sal_dir: str, name: str, pred: np.ndarray, hw) -> None:
@@ -71,15 +82,18 @@ def _save_map(sal_dir: str, name: str, pred: np.ndarray, hw) -> None:
 
 
 def dump_saliency_maps(cfg, model: nn.Module, epoch, log=print,
-                       dir_prefix: str = "") -> dict:
+                       dir_prefix: str = "", mesh2d=None) -> dict:
     """Core of the TEST protocol: per dataset under TEST.DATASET_PATH,
     forward + sigmoid + resize-back + uint8 PNG dump into
     {dir_prefix}{dataset}_{epoch}. Used by run_test and by the finetune
     driver's in-loop periodic test (reference finetune.py:183-185,304-352,
     which dumps into finetune_{ds}_{epoch}). Under data parallelism the
     ranks split each fixed-size batch and the primary writes; the
-    ceil-to-16 mode runs on the primary alone (its results only there)."""
+    ceil-to-16 mode runs on the primary alone (its results only there).
+    On ``mesh2d`` (by default the world's data mesh) the data indices split
+    each fixed-size batch and the spatial indices each image's rows."""
     primary = multihost.is_primary()
+    mesh2d = mesh2d or mesh.data_mesh()
     dtype = compute_dtype(cfg)
     device = model_device(model)
     task = cfg.TASK or cfg.MODEL.ARCH
@@ -101,12 +115,14 @@ def dump_saliency_maps(cfg, model: nn.Module, epoch, log=print,
     # host-mode parity path keeps the reference's f32 resize-then-quantize
     quant = dev_pre or hyb_pre
     eval_step = make_eval_step(model, from_u8=hyb_pre, compute_dtype=dtype,
-                               quantize_u8=quant)
+                               quantize_u8=quant,
+                               mesh=mesh2d if fixed else None)
     out_hw = (cfg.TEST.IMAGE_H, cfg.TEST.IMAGE_W)
     # the ranks split each fixed-size batch; the ceil-to-16 mode runs
     # whole on the primary, without collectives
-    group = mesh.data_group() if fixed else None
-    rows = mesh.row_slice(batch_size, group)
+    group, rows = None, slice(None)
+    if fixed:
+        group, rows = mesh2d.data_group, mesh2d.rows(batch_size)
     local_bs = len(range(batch_size)[rows])
 
     def load(name):
@@ -276,7 +292,10 @@ def run_testall_resident(cfg, log=print, *,
                                  make_resident_salmetric_fn)
     from ..metrics.salmetric import format_report, result_from_sums
 
-    device, group = init_data_parallel(device, log)
+    if cfg.CUDA.MESH_SHAPE:
+        refuse_resident_mesh(f"CUDA.MESH_SHAPE={cfg.CUDA.MESH_SHAPE}",
+                             "CUDA.TEST_RESIDENT")
+    device, data_mesh = init_data_parallel(device, log)
     if not (cfg.TEST.IMAGE_H and cfg.TEST.IMAGE_W):
         raise SystemExit("CUDA.TEST_RESIDENT needs fixed TEST.IMAGE_H/W "
                          "(the ceil-to-16 mode is per-image-shaped)")
@@ -305,7 +324,8 @@ def run_testall_resident(cfg, log=print, *,
         if wf_skipped:
             log(f"resident test split {ds}: weighted-F SKIPPED: {wf_skipped}")
         splits[ds] = (data, make_resident_salmetric_fn(
-            eval_step, batch_size=batch, canvas_hw=canvas_hw, group=group))
+            eval_step, batch_size=batch, canvas_hw=canvas_hw,
+            mesh=data_mesh))
         nbytes = sum(v.numel() * v.element_size() for v in data.values())
         log(f"resident test split {ds}: {len(sd)} images "
             f"({nbytes / 2**20:.0f} MiB on {device})")

@@ -15,6 +15,12 @@ with ``SOD100K_MULTIHOST=auto torchrun --nproc-per-node N -m
 sod100k_tpu_torch.cli.train ...``. DATA.BATCH_SIZE is then the global
 batch: each rank trains on its rows, with global-batch BN statistics, and
 the primary writes the logs and checkpoints.
+
+With CUDA.MESH_SHAPE "DxS" the D*S processes form a 2-D mesh: the batch
+splits over D and each image's rows over S (``parallel.spatial``), e.g.
+``SOD100K_MULTIHOST=auto torchrun --nproc-per-node 4 -m
+sod100k_tpu_torch.cli.train --config x.yml`` with ``MESH_SHAPE: "2x2"``
+under ``CUDA:``. Validation runs on the same mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import time
 
 import torch
 
+from ..arch.csnet import DEEPEST_STRIDE2_FACTOR
 from ..config import get_cfg
 from ..interop.torch_ckpt import load_pretrained
 from ..parallel import mesh, multihost
@@ -33,7 +40,7 @@ from ..train.optim import make_adam, make_adam_dwd, multistep_lr
 from ..train.step import make_train_step
 from ..utils.profiler import trace
 from .common import (Logger, TrainFeeds, build_model_from_cfg,
-                     check_preprocess, compute_dtype, init_data_parallel,
+                     check_preprocess, compute_dtype, init_parallel,
                      is_torch_optimizer_state, load_any_checkpoint,
                      log_peak_memory, resolve_dirs)
 
@@ -64,7 +71,11 @@ class _FirstSteps:
 
 def run_training(cfg, max_epochs: int | None = None, log=None, *,
                  device: str | torch.device = "cuda") -> dict:
-    device, group = init_data_parallel(device, log or print)
+    device, mesh2d = init_parallel(
+        cfg, device, log or print, image_h=cfg.DATA.IMAGE_H,
+        stride2_factor=DEEPEST_STRIDE2_FACTOR,
+        resident=("CUDA.PREPROCESS=resident"
+                  if cfg.CUDA.PREPROCESS == "resident" else ""))
     dirs = resolve_dirs(cfg)
     if log is None:
         log = Logger(dirs["base"], "logtrain", dirs["task"])
@@ -105,7 +116,7 @@ def run_training(cfg, max_epochs: int | None = None, log=None, *,
         log(f"=> loaded checkpoint (epoch {start_epoch})")
 
     # rank 0's weights on every rank (all built from one seed and one file)
-    mesh.replicate(model, group)
+    mesh.replicate(model, mesh2d.world)
     preprocess = check_preprocess(cfg)
     flops_expand = (cfg.AUTO.FLOPS.EXPAND if cfg.AUTO.FLOPS.EXPAND != -1.0
                     else 2.0)
@@ -114,9 +125,10 @@ def run_training(cfg, max_epochs: int | None = None, log=None, *,
         flops_weight=cfg.AUTO.FLOPS.WEIGHT if cfg.AUTO.FLOPS.ENABLE else 0.0,
         flops_expand=flops_expand, batch_size=cfg.DATA.BATCH_SIZE,
         compute_dtype=compute_dtype(cfg),
-        from_u8=preprocess == "hybrid", group=group)
+        from_u8=preprocess == "hybrid", mesh=mesh2d,
+        image_h=cfg.DATA.IMAGE_H)
     feeds = TrainFeeds(cfg, step, model, device, log,
-                       resident_seed=7_777_777, tag="Epoch", group=group)
+                       resident_seed=7_777_777, tag="Epoch", mesh=mesh2d)
 
     best_mae, best_epoch = float("inf"), -1
     epochs = max_epochs if max_epochs is not None else cfg.SOLVER.MAX_EPOCHS

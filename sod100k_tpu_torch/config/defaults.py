@@ -120,6 +120,13 @@ _C.CUDA.SEED = 0
 # (apparently by typo) not conv3x3_2's (train.py:102-104); True reproduces
 # the quirk, False exempts conv3x3_2 too
 _C.CUDA.WD_QUIRK = True
+# explicit 2-D mesh "DATAxSPATIAL" (e.g. "2x2"), one process per card: the
+# batch splits over the data axis and each image's rows (H) over the
+# spatial axis (parallel.spatial's halo exchanges through every layer).
+# The spatial axis is the scale-out lever when the per-card batch would
+# drop below 1 under pure data parallelism (small-batch recipes). "" = the
+# 1-D data group over every process
+_C.CUDA.MESH_SHAPE = ""
 # where the training data front-end runs:
 #   "host":   full host preprocessing, ships normalized f32 at train size
 #             (bit-matched to the reference dialect).

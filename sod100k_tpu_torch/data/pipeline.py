@@ -373,7 +373,8 @@ def require_device(device) -> torch.device:
 
 
 def device_prefetch(it: Iterator[dict], *, device="cuda",
-                    depth: int = 2) -> Iterator[dict]:
+                    depth: int = 2, mesh=None,
+                    bands: bool = True) -> Iterator[dict]:
     """Overlap host batch production with device compute: a producer thread
     moves each batch's numpy arrays to ``device`` into a queue of ``depth``.
     On the card the arrays go through pinned host memory and a non-blocking
@@ -383,13 +384,15 @@ def device_prefetch(it: Iterator[dict], *, device="cuda",
 
     Under data parallelism (several processes) the iterator yields the
     same index-deterministic global batch on every rank and only this
-    rank's rows move (``parallel.multihost.local_slice_feed``)."""
+    rank's rows move (``parallel.multihost.local_slice_feed``; under a 2-D
+    ``mesh`` the data index's rows, and with ``bands`` only the spatial
+    index's band of each image)."""
     device = require_device(device)
     cuda = device.type == "cuda"
     stream = torch.cuda.Stream(device) if cuda else None
 
     def place(batch: dict):
-        batch = local_slice_feed(batch)
+        batch = local_slice_feed(batch, mesh=mesh, bands=bands)
         out = {}
         for k, v in batch.items():
             if isinstance(v, np.ndarray):

@@ -24,14 +24,15 @@ Port of ``sod100k_tpu/data/resident.py:37-372``:
 Every builder puts its tensors on the card unless the caller names another
 device, and raises when the card is absent.
 
-Under data parallelism (``group``, one process per card) every rank holds
-the whole store. The epochs draw the permutation and the augmentations of
+Under data parallelism (``mesh``, a W x 1 ``parallel.mesh.Mesh2D``; one
+process per card) every rank holds the whole store. The epochs draw the permutation and the augmentations of
 the global batch from the same generator on every rank and keep the rank's
 rows, so W ranks see exactly the rows, crops and flips of one process. The
 evaluation paths split the batches over the ranks and SUM-all-reduce the
 metric sums, which are additive. The JAX package's augmentation
 note holds here too: images are pre-resized to the store size, so the crop
-acts at that scale (``max_crop`` 17 ~ 15 * 256/224).
+acts at that scale (``max_crop`` 17 ~ 15 * 256/224). A mesh with a spatial
+axis is refused (the drivers refuse it first).
 """
 
 from __future__ import annotations
@@ -41,12 +42,27 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..parallel.mesh import all_reduce_sum, rank, row_slice, world_size
+from ..parallel.mesh import Mesh2D, all_reduce_sum
 from .device_pipeline import preprocess_train_batch, resize_to_native_canvas
 from .image_io import resize_u8_linear
 from .pipeline import require_device
 
 HOST_THREADS = 8  # decode, resize and distance-transform threads
+
+
+def _rows(batch_size: int, mesh: Mesh2D | None) -> slice:
+    """This rank's rows of each global batch under the data mesh ``mesh``
+    (all of them without one)."""
+    if mesh is None:
+        return slice(None)
+    if mesh.spatial > 1:
+        raise ValueError(f"the resident programs run on a data mesh, not on "
+                         f"the 2-D mesh {mesh.shape}")
+    return mesh.rows(batch_size)
+
+
+def _world(mesh: Mesh2D | None):
+    return mesh.world if mesh is not None else None
 
 
 def build_resident_dataset(dataset, store_hw=(256, 256), *,
@@ -74,7 +90,7 @@ def build_resident_dataset(dataset, store_hw=(256, 256), *,
 
 def make_resident_epoch_fn(step_fn, *, batch_size: int, out_hw,
                            augment: bool = True, max_crop: int = 17,
-                           group=None):
+                           mesh: Mesh2D | None = None):
     """An epoch over a resident store: shuffle -> per batch (gather ->
     augment -> ``step_fn``).
 
@@ -85,12 +101,12 @@ def make_resident_epoch_fn(step_fn, *, batch_size: int, out_hw,
     Returns ``epoch_fn(data, generator, lr, penalty_on) -> (losses (nb,),
     penalties (nb,))``, device tensors. The permutation, then each batch's
     draws, come from ``generator`` (on the store's device), in that order.
-    With ``group``, ``batch_size`` is the global batch and the step sees
+    With ``mesh``, ``batch_size`` is the global batch and the step sees
     this rank's rows of it.
     """
     from .device_pipeline import draw_augment_params
 
-    rows = row_slice(batch_size, group)
+    rows = _rows(batch_size, mesh)
 
     def epoch_fn(data: dict, generator: torch.Generator, lr: float,
                  penalty_on: float):
@@ -119,7 +135,8 @@ def make_resident_epoch_fn(step_fn, *, batch_size: int, out_hw,
     return epoch_fn
 
 
-def make_resident_csf_epoch_fn(step_fn, *, batch_size: int, group=None):
+def make_resident_csf_epoch_fn(step_fn, *, batch_size: int,
+                               mesh: Mesh2D | None = None):
     """An epoch of the CSF recipe over a resident store: shuffle -> per
     batch (gather -> per-sample horizontal flip at p=0.5 -> ImageNet
     normalization of the u8 image and target / 255 on the device ->
@@ -133,12 +150,12 @@ def make_resident_csf_epoch_fn(step_fn, *, batch_size: int, group=None):
     a device tensor. The permutation, then the (nb, batch_size) flips, come
     from ``generator`` (on the store's device), unless ``draws`` gives them:
     ``(perm (nb, batch_size) int64, flips (nb, batch_size) bool)``. With
-    ``group``, ``batch_size`` is the global batch, the step sees this
+    ``mesh``, ``batch_size`` is the global batch, the step sees this
     rank's rows of it and the losses are this rank's shares.
     """
     from .pipeline import normalize_u8
 
-    rows = row_slice(batch_size, group)
+    rows = _rows(batch_size, mesh)
 
     def epoch_fn(data: dict, generator: torch.Generator, lr: float,
                  draws=None) -> torch.Tensor:
@@ -244,21 +261,22 @@ def _batch_native_maps(eval_step, img, hw, canvas_hw):
     return sal255, mask
 
 
-def _batches(data: dict, batch_size: int, keys, group=None):
+def _batches(data: dict, batch_size: int, keys, mesh=None):
     """(index, batch) of the split's batches that this rank scores: every
-    W-th from its rank, all of them without a group."""
+    W-th from its data index, all of them without a mesh."""
     nb = data["image_u8"].shape[0] // batch_size
-    w = world_size(group) if group is not None else 1
+    _rows(batch_size, mesh)  # refuses a spatial axis
+    w, r = (mesh.data, mesh.data_index) if mesh is not None else (1, 0)
     if w > nb:
         raise ValueError(f"{nb} batches of {batch_size} cannot be shared by "
                          f"{w} processes; use a smaller batch")
-    for b in range(rank(group) if w > 1 else 0, nb, w):
+    for b in range(r, nb, w):
         sl = slice(b * batch_size, (b + 1) * batch_size)
         yield b, {k: data[k][sl] for k in keys if k in data}
 
 
 def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw,
-                               group=None):
+                               mesh: Mesh2D | None = None):
     """The TESTALL sweep over a resident split: per batch, forward ->
     native resize-back -> PNG quantization -> threshold counts, MAE, P/R,
     E-measure, adaptive F and E, S-measure and (when the store has the
@@ -268,7 +286,7 @@ def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw,
     ``fn(data) -> dict`` of per-batch sums on the card, each with a leading
     (nb,) axis: "n", "mae_sum", "p_sum"/"r_sum"/"e_sum" (256 each),
     "a_sum", "ae_sum", "s_sum" and "w_sum". Reduce them on the host with
-    ``metrics.salmetric.result_from_sums``. With ``group`` each rank scores
+    ``metrics.salmetric.result_from_sums``. With ``mesh`` each rank scores
     its share of the batches and the (nb, ...) sums are all-reduced: every
     rank returns the single-process sums, bit for bit."""
     from ..metrics.salmetric import (adaptive_e_per_image,
@@ -282,7 +300,7 @@ def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw,
     def fn(data: dict) -> dict:
         nb = data["image_u8"].shape[0] // batch_size
         out = {}
-        for b, xs in _batches(data, batch_size, keys, group):
+        for b, xs in _batches(data, batch_size, keys, mesh):
             wt = xs["weight"]
             sal255, mask = _batch_native_maps(eval_step, xs["image_u8"],
                                               xs["hw"], canvas_hw)
@@ -309,22 +327,22 @@ def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw,
                 if k not in out:
                     out[k] = v.new_zeros((nb, *v.shape))
                 out[k][b] = v
-        # under a group each rank filled its batches' rows and left zeros
+        # under a mesh each rank filled its batches' rows and left zeros
         # elsewhere: the SUM has one non-zero term per row, so it is exact
-        return all_reduce_sum(out, group)
+        return all_reduce_sum(out, _world(mesh))
 
     return fn
 
 
 def make_resident_val_fn(eval_step, *, batch_size: int, canvas_hw,
-                         group=None):
+                         mesh: Mesh2D | None = None):
     """Validation over a resident val set: per image, the map resized to
     its native (h, w), trunc-quantized to /255 steps and L1-scored against
     the native GT (the host protocol, cli/common.py val_mae).
 
     ``eval_step``: ``make_eval_step(model, from_u8=True, ...)``. Returns
     ``val_fn(data) -> MAE``, a 0-d f32 tensor on the card (weighted by
-    "weight", so the padding copies count for nothing). With ``group`` each
+    "weight", so the padding copies count for nothing). With ``mesh`` each
     rank scores its share of the batches and the sums are all-reduced."""
 
     @torch.inference_mode()
@@ -332,7 +350,7 @@ def make_resident_val_fn(eval_step, *, batch_size: int, canvas_hw,
         dev = data["image_u8"].device
         s = c = torch.zeros((), device=dev)
         for _, xs in _batches(data, batch_size, ("image_u8", "gt_u8", "hw",
-                                                 "weight"), group):
+                                                 "weight"), mesh):
             hw, wt = xs["hw"], xs["weight"]
             sal255, mask = _batch_native_maps(eval_step, xs["image_u8"], hw,
                                               canvas_hw)
@@ -340,7 +358,7 @@ def make_resident_val_fn(eval_step, *, batch_size: int, canvas_hw,
                              - xs["gt_u8"].float() / 255.0) * mask
             maes = diff.sum(dim=(1, 2)) / (hw[:, 0] * hw[:, 1]).float()
             s, c = s + torch.sum(maes * wt), c + wt.sum()
-        tot = all_reduce_sum({"s": s, "c": c}, group)
+        tot = all_reduce_sum({"s": s, "c": c}, _world(mesh))
         return tot["s"] / tot["c"]
 
     return val_fn

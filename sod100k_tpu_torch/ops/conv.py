@@ -5,6 +5,11 @@ reference's Conv2dX100 trick: the stored weight is 1/100 of the effective
 weight and the forward multiplies by 100. The scale stays in the graph (it is
 not folded into the stored weight) so gradients and optimizer state see the
 same parameterization as the reference.
+
+Under a ``parallel.spatial.SpatialCtx`` the input is this rank's band of
+the map's rows: the convolution fetches the rows its output band reads
+(any stride, dilation and padding), zero-pads only at the image edges and
+returns its band of the output.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.spatial import SpatialCtx, banded, height
 
 
 def _pair(v) -> tuple[int, int]:
@@ -31,15 +38,23 @@ def conv2d(
     groups: int = 1,
     weight_scale: float = 1.0,
     padding_mode: str = "zeros",
+    spatial: Optional[SpatialCtx] = None,
 ) -> torch.Tensor:
     """``F.conv2d`` with the JAX package's conventions.
 
     The (scaled) weight and the bias are cast to the activation dtype, so
     bf16 activations run a bf16 convolution (cuDNN accumulates in f32).
     ``padding_mode="circular"`` wrap-pads by the torch expansion (top/left
-    get (pad+1)//2, bottom/right pad//2) and then convolves unpadded.
+    get (pad+1)//2, bottom/right pad//2) and then convolves unpadded; no
+    model uses it, and it is refused under ``spatial``.
     """
     padding = _pair(padding)
+    if spatial is not None:
+        if padding_mode != "zeros":
+            raise ValueError(f"padding_mode {padding_mode!r} is not "
+                             f"supported on row bands")
+        return _conv2d_banded(x, weight, bias, _pair(stride), padding,
+                              _pair(dilation), groups, weight_scale, spatial)
     if padding_mode == "circular":
         ph, pw = padding
         x = F.pad(x, ((pw + 1) // 2, pw // 2, (ph + 1) // 2, ph // 2),
@@ -53,6 +68,25 @@ def conv2d(
     if bias is not None:
         y = y + bias.to(x.dtype).view(1, -1, 1, 1)
     return y
+
+
+def _conv2d_banded(x, weight, bias, stride, padding, dilation, groups,
+                   weight_scale, sp: SpatialCtx) -> torch.Tensor:
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    k = weight.shape[2]
+    h_out = (height(x) + 2 * ph - dh * (k - 1) - 1) // sh + 1
+    w = weight if weight_scale == 1.0 else weight * weight_scale
+    w = w.to(x.dtype)
+
+    def fn(win, a, b):
+        y = F.conv2d(win, w, None, (sh, sw), (0, pw), (dh, dw), groups)
+        if bias is not None:
+            y = y + bias.to(x.dtype).view(1, -1, 1, 1)
+        return y
+
+    return banded(x, sp, h_out,
+                  lambda a, b: (a * sh - ph, (b - 1) * sh - ph
+                                + dh * (k - 1) + 1), fn)
 
 
 class ConvWeight(nn.Module):

@@ -27,6 +27,12 @@ only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
 raises. ``launches`` counts kernel launches, so a run can show that the main
 path went through the kernel; ``packs_built`` counts packs built by
 ``TailPacks``. Inference only: the kernel has no backward.
+
+On row bands (``parallel.spatial``, the 2-D mesh) ``fused_dw_chain_band``
+fetches a 2-row halo (two 3x3 stages) from the neighbouring bands, runs the
+same kernel on band + halo, whose own zero padding then falls only on the
+true image edges, and crops the halo; ``spatial_launches`` counts its
+kernel launches.
 """
 
 from __future__ import annotations
@@ -39,10 +45,13 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import SpatialCtx, fetch_rows, height, tag
 from . import cuda_lib
 
 launches = 0
+spatial_launches = 0
 packs_built = 0
+HALO = 2  # rows a band reads from each neighbour: two 3x3 stages
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 NPARAM = 24
@@ -493,10 +502,46 @@ def fused_dw_chain(x, w1, s1, b1, a1, w2, s2, b2, a2) -> torch.Tensor:
     return fused_dw_chain_packed(x, pack_params(*params))
 
 
-def dw_tail_fused(xset: list, packs: list) -> list:
+def _halo_window(x: torch.Tensor, sp: SpatialCtx
+                ) -> tuple[torch.Tensor, int, int]:
+    """Band ``x`` with ``HALO`` rows of each neighbouring band (fewer at
+    the image edges): (window, first row of the band in it, band rows).
+    Every rank of the group takes part in the exchange."""
+    h = height(x)
+    owners = sp.bands(h)
+    wins = [(max(a - HALO, 0), min(b + HALO, h)) if b > a else (0, 0)
+            for a, b in owners]
+    win = fetch_rows(x, [w[0] for w in wins], [w[1] for w in wins], sp, h)
+    a, b = owners[sp.index]
+    return win.contiguous(), a - wins[sp.index][0], b - a
+
+
+def fused_dw_chain_band(x: torch.Tensor, packed: torch.Tensor,
+                        sp: SpatialCtx) -> torch.Tensor:
+    """``fused_dw_chain_packed`` on this rank's band of a map: the kernel
+    (or, on the CPU, its plain version) on band + halo, cropped to the
+    band; tagged with the map's height."""
+    global spatial_launches
+    win, off, rows = _halo_window(x, sp)
+    if rows == 0:
+        return tag(x.new_zeros(x.shape), height(x))
+    # counted from ``launch``'s own count: a call that launched no kernel
+    # (the CPU's plain version) adds nothing
+    before = launches
+    y = fused_dw_chain_packed(win, packed)
+    spatial_launches += launches - before
+    return tag(y[:, :, off:off + rows].contiguous(), height(x))
+
+
+def dw_tail_fused(xset: list, packs: list,
+                  spatial: SpatialCtx | None = None) -> list:
     """conv3x3_1 then conv3x3_2 (the two ``SimplifiedGOctCBR`` stages of an
     ILBlock) fused, per octave branch, from one pack per branch
-    (``pack_tail`` / ``TailPacks``)."""
+    (``pack_tail`` / ``TailPacks``); on row bands under ``spatial``."""
+    if spatial is not None:
+        return [None if p is None or x is None
+                else fused_dw_chain_band(x, p, spatial)
+                for x, p in zip(xset, packs)]
     return [None if p is None or x is None
             else fused_dw_chain_packed(x.contiguous(), p)
             for x, p in zip(xset, packs)]

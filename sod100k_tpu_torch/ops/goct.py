@@ -26,6 +26,12 @@ A train-mode forward can hand every module a ``GapCollector``: it records,
 per BN, the detached |spatial mean| of the post-PReLU activation, the
 signal of the dynamic-weight-decay penalty (``train/dynamic_wd.py``). Group
 norms are never recorded.
+
+Every forward takes ``spatial`` (a ``parallel.spatial.SpatialCtx``): the
+octset then holds this rank's row band of each branch, each branch with
+its own global height, and the convolutions, pools and resamples fetch
+the rows they read from the other ranks of the spatial group. The CSF
+dialect's resize targets are the input branches' global shapes.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel.spatial import SpatialCtx, height, like, spatial_sum
 from .conv import ConvWeight, conv2d
 from .norm import BN_EPS, GN_GROUPS, norm_act
 from .resample import avg_pool, max_pool, resize_bilinear, upsample_bilinear
@@ -58,21 +65,49 @@ class GapCollector:
     detached (the JAX package's ``ApplyCtx.gap``, reference
     ``Oct_bn_hook``). ``paths`` is the model's ``bn_paths``, built once per
     model; the train step makes a collector per forward and passes it
-    down."""
+    down.
 
-    def __init__(self, paths: dict[nn.Module, str]):
-        self.paths = paths
+    Under ``spatial`` (row bands) a record keeps the band's sums; ``finish``
+    sums them over the spatial group in one all-reduce and divides by each
+    map's whole size. ``gap`` is read after ``finish``."""
+
+    def __init__(self, paths: dict[nn.Module, str],
+                 spatial: Optional[SpatialCtx] = None):
+        self.paths, self.spatial = paths, spatial
         self.gap: dict[str, torch.Tensor] = {}
+        self._sums: dict[str, tuple[torch.Tensor, int]] = {}
 
     def record(self, bn: nn.BatchNorm2d, y: torch.Tensor) -> None:
-        self.gap[self.paths[bn]] = y.float().mean(dim=(2, 3)).abs().detach()
+        if self.spatial is None:
+            self.gap[self.paths[bn]] = \
+                y.float().mean(dim=(2, 3)).abs().detach()
+            return
+        self._sums[self.paths[bn]] = (y.detach().float().sum(dim=(2, 3)),
+                                      height(y) * y.shape[3])
+
+    def finish(self) -> None:
+        """The means of the whole maps from the bands' sums (no-op without
+        ``spatial``)."""
+        if not self._sums:
+            return
+        keys = list(self._sums)
+        flat = spatial_sum(torch.cat([self._sums[k][0].reshape(-1)
+                                      for k in keys]), self.spatial)
+        off = 0
+        for k in keys:
+            t, size = self._sums[k]
+            self.gap[k] = (flat[off:off + t.numel()].view_as(t)
+                           / size).abs()
+            off += t.numel()
+        self._sums = {}
 
 
 def _norm_act(norm: nn.Module, act: nn.PReLU, x: torch.Tensor,
-              gap: Optional[GapCollector]) -> torch.Tensor:
+              gap: Optional[GapCollector],
+              spatial: Optional[SpatialCtx] = None) -> torch.Tensor:
     """``norm_act``, recorded in ``gap`` when one is given and the norm is
     a batch norm."""
-    y = norm_act(norm, act, x)
+    y = norm_act(norm, act, x, spatial)
     if gap is not None and isinstance(norm, nn.BatchNorm2d):
         gap.record(norm, y)
     return y
@@ -112,6 +147,7 @@ def goct_conv(
     padding: int = 0,
     dilation: int = 1,
     flavor: str = "csnet",
+    spatial: Optional[SpatialCtx] = None,
 ) -> OctSet:
     """Generalized octave convolution over an octset.
 
@@ -124,34 +160,32 @@ def goct_conv(
         raise ValueError(f"unknown gOctConv flavor {flavor!r}")
     in_off = _offsets(in_split)
     out_off = _offsets(out_split)
+    sp = spatial
     ysets: list[list[torch.Tensor]] = [[] for _ in out_split]
     for i, ci in enumerate(in_split):
         if ci == 0 or i >= len(xset) or xset[i] is None:
             continue
-        x = avg_pool(xset[i], 2) if stride == 2 else xset[i]
+        x = avg_pool(xset[i], 2, sp) if stride == 2 else xset[i]
         for j, cj in enumerate(out_split):
             if cj == 0:
                 continue
             w = weight[out_off[j]:out_off[j + 1], in_off[i]:in_off[i + 1]]
             b = None if bias is None else bias[out_off[j]:out_off[j + 1]]
+            conv = dict(padding=padding, dilation=dilation, spatial=sp)
             if i == j:
-                y = conv2d(x, w, b, padding=padding, dilation=dilation)
+                y = conv2d(x, w, b, **conv)
             elif flavor == "csf":
-                tgt = xset[j].shape[2:]
+                tgt = ((height(xset[j]), xset[j].shape[3]) if sp is not None
+                       else xset[j].shape[2:])
                 if i > j:
-                    y = resize_bilinear(
-                        conv2d(x, w, b, padding=padding, dilation=dilation),
-                        tgt)
+                    y = resize_bilinear(conv2d(x, w, b, **conv), tgt, sp)
                 else:
-                    y = conv2d(resize_bilinear(x, tgt), w, b,
-                               padding=padding, dilation=dilation)
+                    y = conv2d(resize_bilinear(x, tgt, sp), w, b, **conv)
             elif i > j:
-                y = upsample_bilinear(
-                    conv2d(x, w, b, padding=padding, dilation=dilation),
-                    2 ** (i - j))
+                y = upsample_bilinear(conv2d(x, w, b, **conv), 2 ** (i - j),
+                                      sp)
             else:
-                y = conv2d(max_pool(x, 2 ** (j - i)), w, b, padding=padding,
-                           dilation=dilation)
+                y = conv2d(max_pool(x, 2 ** (j - i), sp), w, b, **conv)
             ysets[j].append(y)
     out: OctSet = []
     for ys in ysets:
@@ -161,7 +195,7 @@ def goct_conv(
         acc = ys[0]
         for y in ys[1:]:
             acc = acc + y
-        out.append(acc)
+        out.append(like(acc, ys[0], sp))
     return out
 
 
@@ -201,23 +235,25 @@ class GOctCBR(nn.Module):
         self.bns = nn.ModuleDict({k: _norm(norm, c, device) for k, c in live})
         self.prelus = nn.ModuleDict({k: _prelu(c, device) for k, c in live})
 
-    def forward(self, xset: OctSet, gap: Optional[GapCollector] = None
-                ) -> OctSet:
+    def forward(self, xset: OctSet, gap: Optional[GapCollector] = None,
+                spatial: Optional[SpatialCtx] = None) -> OctSet:
         if len(self.in_split) == 1 and len(self.out_split) == 1:
             yset = [conv2d(xset[0], self.conv.weight, stride=self.stride,
-                           padding=self.padding, weight_scale=100.0)]
+                           padding=self.padding, weight_scale=100.0,
+                           spatial=spatial)]
         else:
             yset = goct_conv(xset, self.conv.weight, None,
                              in_split=self.in_split, out_split=self.out_split,
                              stride=self.stride, padding=self.padding,
-                             flavor=self.flavor)
+                             flavor=self.flavor, spatial=spatial)
         out: OctSet = []
         for j, y in enumerate(yset):
             if y is None or self.out_split[j] == 0:
                 out.append(None)
                 continue
             k = str(j)
-            out.append(_norm_act(self.bns[k], self.prelus[k], y, gap))
+            out.append(_norm_act(self.bns[k], self.prelus[k], y, gap,
+                                 spatial))
         return out
 
 
@@ -234,8 +270,8 @@ class SimplifiedGOctCBR(nn.Module):
         self.bns = nn.ModuleDict({k: _bn(c, device) for k, c in live})
         self.prelus = nn.ModuleDict({k: _prelu(c, device) for k, c in live})
 
-    def forward(self, xset: OctSet, gap: Optional[GapCollector] = None
-                ) -> OctSet:
+    def forward(self, xset: OctSet, gap: Optional[GapCollector] = None,
+                spatial: Optional[SpatialCtx] = None) -> OctSet:
         out: OctSet = []
         for j, c in enumerate(self.split):
             if c == 0 or xset[j] is None:
@@ -243,8 +279,9 @@ class SimplifiedGOctCBR(nn.Module):
                 continue
             k = str(j)
             y = conv2d(xset[j], self.convs[k].weight, padding=1, groups=c,
-                       weight_scale=100.0)
-            out.append(_norm_act(self.bns[k], self.prelus[k], y, gap))
+                       weight_scale=100.0, spatial=spatial)
+            out.append(_norm_act(self.bns[k], self.prelus[k], y, gap,
+                                 spatial))
         return out
 
 
@@ -265,13 +302,14 @@ class MSBlock(nn.Module):
         self.bn = _norm(norm, sum(self.dil_split), device)
         self.prelu = _prelu(sum(self.dil_split), device)
 
-    def forward(self, x: torch.Tensor, gap: Optional[GapCollector] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gap: Optional[GapCollector] = None,
+                spatial: Optional[SpatialCtx] = None) -> torch.Tensor:
         outs = [conv2d(x, self.msconv[str(i)].weight, padding=d, dilation=d,
-                       weight_scale=self.weight_scale)
+                       weight_scale=self.weight_scale, spatial=spatial)
                 for i, d in enumerate(DILATIONS) if self.dil_split[i]]
-        y = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-        return _norm_act(self.bn, self.prelu, y, gap)
+        y = outs[0] if len(outs) == 1 else like(torch.cat(outs, dim=1), x,
+                                                  spatial)
+        return _norm_act(self.bn, self.prelu, y, gap, spatial)
 
 
 class PallMSBlock(nn.Module):
@@ -287,8 +325,8 @@ class PallMSBlock(nn.Module):
                             device=device)
             for i, ds in enumerate(dil_splits) if self.live[i]})
 
-    def forward(self, xset: OctSet, gap: Optional[GapCollector] = None
-                ) -> OctSet:
-        return [self.convs[str(i)](xset[i], gap)
+    def forward(self, xset: OctSet, gap: Optional[GapCollector] = None,
+                spatial: Optional[SpatialCtx] = None) -> OctSet:
+        return [self.convs[str(i)](xset[i], gap, spatial)
                 if live and xset[i] is not None else None
                 for i, live in enumerate(self.live)]

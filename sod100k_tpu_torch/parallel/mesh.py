@@ -1,7 +1,7 @@
-"""The 1-D data group: world size, rank, the rank's card, and the
+"""The data x spatial mesh: world size, rank, the rank's card, and the
 collectives of data parallelism.
 
-Port of the 1-D half of ``sod100k_tpu/parallel/mesh.py``. There, XLA
+Port of ``sod100k_tpu/parallel/mesh.py``. There, XLA
 inserts the collectives of a jitted step over a device mesh; here each
 process owns one card and the step calls them itself: the model is
 replicated from rank 0 once (``replicate``), gradients are all-reduced once
@@ -10,13 +10,21 @@ and sums that every rank must read (losses, metric sums) go through
 ``all_reduce_sum``. Batch-norm statistics over the global batch are
 ``ops.norm.GlobalBatchNorm2d``'s.
 
-Not ported, because they exist for GSPMD: the 2-D data x spatial mesh
-(``make_mesh_2d``, ``parse_mesh_shape``), its validity check
-(``check_spatial_extent``) and the spatial half of ``feed_sharding``.
+The 2-D data x spatial mesh (``make_mesh_2d``, ``Mesh2D``): a world of
+D*S processes where rank r sits at data index r // S and spatial index
+r % S (``devs.reshape(data, spatial)`` in the JAX package), so spatial
+neighbours are adjacent ranks on one host. The batch splits over the D
+data indices and each image's rows (H) over the S spatial indices, in
+balanced bands (``band_rows``: ``torch.tensor_split`` semantics). XLA writes
+the halo exchanges of that layout in the JAX package; here
+``parallel.spatial`` writes them over ``torch.distributed``. Plain data
+parallelism is the W x 1 mesh (``data_mesh``), one process the 1 x 1 one:
+the steps, feeds and drivers take a ``Mesh2D`` whatever its shape.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
@@ -44,25 +52,6 @@ def local_device() -> torch.device:
     if not torch.cuda.is_available():
         return torch.device("cpu")
     return torch.device("cuda", _local_rank(rank()))
-
-
-def data_group():
-    """The process group the data axis spans: the world when it holds more
-    than one process, else None (no collectives at all)."""
-    return dist.group.WORLD if world_size() > 1 else None
-
-
-def row_slice(n: int, group=None) -> slice:
-    """This rank's contiguous rows of a length-``n`` global batch axis over
-    ``group``; all of them without a group."""
-    if group is None:
-        return slice(None)
-    w = world_size(group)
-    if n % w:
-        raise ValueError(
-            f"global batch {n} must divide evenly over {w} processes")
-    per, r = n // w, rank(group)
-    return slice(r * per, (r + 1) * per)
 
 
 def _flat_per_dtype(tensors: list, fn) -> None:
@@ -125,3 +114,136 @@ def gather_rows(local: torch.Tensor, group=None) -> torch.Tensor:
     out[r * n:(r + 1) * n] = local
     dist.all_reduce(out, group=group)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The 2-D data x spatial mesh
+
+# Kept for parity with the JAX package, which refuses spatial sharding
+# where the deepest stride-2 conv input is shorter than this: XLA's GSPMD
+# computes sharded strided convs wrongly there (a bug of that compiler,
+# sod100k_tpu/parallel/mesh.py). The halo exchanges here have no such
+# limit; the check stays so that both packages accept the same commands.
+MIN_STRIDE2_INPUT = 6
+
+
+def check_spatial_extent(image_h: int, stride2_factor: int, spatial: int,
+                         what: str = "model") -> None:
+    """Refuse a spatial split the JAX package refuses (ValueError), with
+    its two conditions.
+
+    ``stride2_factor`` is the model's downsampling at the input of its
+    deepest true strided conv (``arch.csnet.DEEPEST_STRIDE2_FACTOR``: 4;
+    ``arch.csf_res2net.DEEPEST_STRIDE2_FACTOR``: 16). The extent-6 bound
+    (``MIN_STRIDE2_INPUT``) guards the JAX package against a GSPMD bug and
+    is kept only so that both packages accept the same commands. The rows
+    check is a real limit of any row split: the deepest feature (one more
+    /2) must give every spatial shard at least one row."""
+    if spatial <= 1:
+        return
+    deepest_in = image_h // stride2_factor
+    if deepest_in < MIN_STRIDE2_INPUT:
+        raise ValueError(
+            f"spatial sharding of {what} at image height {image_h}: the "
+            f"deepest stride-2 conv input would be {deepest_in} rows "
+            f"(< {MIN_STRIDE2_INPUT}), which the JAX package refuses (its "
+            f"compiler computes sharded strided convs wrongly there). Use "
+            f"image height >= {stride2_factor * MIN_STRIDE2_INPUT}, or a "
+            f"1-D data mesh.")
+    deepest = image_h // (2 * stride2_factor)
+    if deepest < spatial:
+        raise ValueError(
+            f"spatial sharding of {what} at image height {image_h} over "
+            f"{spatial} shards leaves the deepest feature ({deepest} rows) "
+            f"with fewer rows than shards; use at most {deepest} spatial "
+            f"shards or a larger image.")
+
+
+def parse_mesh_shape(spec: str) -> tuple[int, int]:
+    """'4x2' -> (4, 2) (data x spatial). Raises ValueError on malformed
+    specs."""
+    try:
+        d, s = (int(v) for v in spec.lower().split("x"))
+        if d < 1 or s < 1:
+            raise ValueError
+    except ValueError:
+        raise ValueError(
+            f"mesh shape must look like '4x2' (data x spatial, both >= 1), "
+            f"got {spec!r}") from None
+    return d, s
+
+
+def band_rows(h: int, index: int, parts: int) -> tuple[int, int]:
+    """Global rows [lo, hi) of band ``index`` of ``parts`` over a height
+    ``h``: balanced blocks, the first ``h % parts`` one row longer
+    (``torch.tensor_split``). A band is empty only where h < parts."""
+    q, r = divmod(h, parts)
+    lo = index * q + min(index, r)
+    return lo, lo + q + (1 if index < r else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """This rank's place in a D x S mesh and its three process groups:
+    ``spatial_group`` (the S ranks of its data index, which split the same
+    images by rows), ``data_group`` (the D ranks of its spatial index) and
+    ``world``. A group of one process is None (no collectives)."""
+
+    data: int
+    spatial: int
+    data_index: int
+    spatial_index: int
+    spatial_group: object
+    data_group: object
+    world: object
+
+    @property
+    def shape(self) -> str:
+        return f"{self.data}x{self.spatial}"
+
+    def rows(self, n: int) -> slice:
+        """This rank's rows of a length-``n`` global batch (by data
+        index)."""
+        if n % self.data:
+            raise ValueError(
+                f"global batch {n} must divide evenly over the data axis "
+                f"({self.data})")
+        per = n // self.data
+        return slice(self.data_index * per, (self.data_index + 1) * per)
+
+    def band(self, h: int) -> tuple[int, int]:
+        """This rank's global rows [lo, hi) of a height-``h`` map."""
+        return band_rows(h, self.spatial_index, self.spatial)
+
+
+def make_mesh_2d(data: int, spatial: int) -> Mesh2D:
+    """The D x S mesh over the world (which must hold exactly D*S
+    processes; one process makes the 1 x 1 mesh). Every rank builds every
+    group, in one order, as ``torch.distributed.new_group`` requires."""
+    need, have = data * spatial, world_size()
+    if have != need:
+        raise ValueError(f"mesh shape {data}x{spatial} needs {need} "
+                         f"processes, the world has {have}")
+    di, si = divmod(rank(), spatial)
+    world = dist.group.WORLD if need > 1 else None
+    # an axis of the whole world is the world; groups are made only for
+    # two axes of more than one process
+    sgroup = world if data == 1 else None
+    dgroup = world if spatial == 1 else None
+    if data > 1 and spatial > 1:
+        for d in range(data):
+            g = dist.new_group([d * spatial + s for s in range(spatial)])
+            if d == di:
+                sgroup = g
+        for s in range(spatial):
+            g = dist.new_group([d * spatial + s for d in range(data)])
+            if s == si:
+                dgroup = g
+    return Mesh2D(data, spatial, di, si, sgroup, dgroup, world)
+
+
+def data_mesh() -> Mesh2D:
+    """The 1-D data mesh of the world: W x 1, where every rank holds its
+    rows of each batch and whole images (1 x 1, without collectives, for
+    one process). Makes no process group."""
+    return make_mesh_2d(world_size(), 1)

@@ -23,6 +23,12 @@ pipelines are index-deterministic (draws keyed on seed, epoch and index),
 so every process derives the same global batch and ``process_slice`` picks
 its rows without coordination; scalars the drivers print are all-reduced,
 so every rank reads the global value; the primary alone writes files.
+
+Under a 2-D data x spatial mesh (``mesh.Mesh2D``) a rank's feed is its data
+index's rows and, of every image-like array, its spatial index's band of
+the rows (``local_slice_feed``); per-sample side arrays stay data-only.
+A spatial group exchanges halos at every layer, so it must sit on one host
+(``check_mesh_process_layout``).
 """
 
 from __future__ import annotations
@@ -34,8 +40,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import (_local_rank, data_group, local_device, rank, row_slice,
-                   world_size)
+from .mesh import (Mesh2D, _local_rank, band_rows, data_mesh, local_device,
+                   rank, world_size)
 
 INIT_TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -112,20 +118,44 @@ def barrier(name: str, timeout_s: float = 600.0) -> None:
         raise RuntimeError(f"barrier {name!r}: {e}") from e
 
 
-def process_slice(n: int) -> slice:
-    """This process's contiguous rows of a length-``n`` global batch."""
-    return row_slice(n, data_group()) if is_multihost() else slice(0, n)
+def process_slice(n: int, mesh: Mesh2D | None = None) -> slice:
+    """This process's contiguous rows of a length-``n`` global batch: its
+    data index's under ``mesh`` (by default the world's data mesh)."""
+    return (mesh or data_mesh()).rows(n)
+
+
+def check_mesh_process_layout(mesh: Mesh2D) -> None:
+    """Refuse a mesh whose spatial groups would cross hosts: ranks are
+    placed host by host, so the ranks of one host (torchrun's
+    ``LOCAL_WORLD_SIZE``, where it is set) must be a whole number of
+    spatial groups. The data axis alone may cross hosts."""
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if mesh.spatial > 1 and local and int(local) % mesh.spatial:
+        raise ValueError(
+            f"mesh {mesh.shape} spreads a spatial group across hosts: "
+            f"{local} processes per host is not a multiple of the spatial "
+            f"axis {mesh.spatial}; keep spatial <= the processes per host "
+            f"and dividing them (data is the only axis that may cross "
+            f"hosts)")
 
 
 def _is_array(v) -> bool:
     return isinstance(v, (np.ndarray, torch.Tensor))
 
 
-def local_slice_feed(batch: dict, n_global: int | None = None) -> dict:
+def local_slice_feed(batch: dict, n_global: int | None = None,
+                     mesh: Mesh2D | None = None, bands: bool = True) -> dict:
     """This process's rows of a deterministic global batch dict. Every feed
     array is batch-leading (images, targets, per-sample sizes), so one
     slice applies to all; other values pass through. No-op for a single
-    process."""
+    process.
+
+    Under a 2-D ``mesh`` the rows are the data index's and, with ``bands``,
+    every image-like array (3 or more dimensions: NHWC images, targets,
+    masks) is cut to the spatial index's band of its rows (axis 1), as the
+    JAX package's ``feed_sharding`` shards H; arrays of 1 or 2 dimensions
+    (sizes, ``hw`` pairs) stay data-only. ``bands=False`` keeps whole
+    images, for feeds that are resized on the card before the cut."""
     if not is_multihost():
         return batch
     if n_global is None:
@@ -137,8 +167,15 @@ def local_slice_feed(batch: dict, n_global: int | None = None) -> dict:
                 f"{len(v)} != global batch {n_global}; every feed array "
                 "must be batch-leading (replicate non-batch arrays "
                 "explicitly outside the feed)")
-    sl = process_slice(n_global)
-    return {k: (v[sl] if _is_array(v) else v) for k, v in batch.items()}
+    sl = process_slice(n_global, mesh)
+    out = {k: (v[sl] if _is_array(v) else v) for k, v in batch.items()}
+    if mesh is None or mesh.spatial == 1 or not bands:
+        return out
+    for k, v in out.items():
+        if _is_array(v) and v.ndim >= 3:
+            lo, hi = band_rows(v.shape[1], mesh.spatial_index, mesh.spatial)
+            out[k] = v[:, lo:hi]
+    return out
 
 
 def global_feed(batch: dict, device) -> dict:

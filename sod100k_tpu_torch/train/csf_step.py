@@ -23,6 +23,11 @@ Under data parallelism (``group``) each rank runs its rows of the global
 batch and the loss keeps dividing by the global batch, so the gradients
 are SUM-all-reduced, once per optimizer apply. The frozen BN statistics
 need no global batch norm.
+
+Under a 2-D mesh (``mesh``) each rank also holds only its band of each
+image's rows (``parallel.spatial``): the loss, a sum divided by iter_size *
+batch, is then this rank's band's share as it stands, and the gradients
+are summed over the world.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data.pipeline import normalize_u8
-from ..parallel.mesh import all_reduce_grads
+from ..parallel.mesh import Mesh2D, all_reduce_grads
+from ..parallel.spatial import SpatialCtx, spatial_sum
 from .optim import set_lr
 from .step import _device, _on
 
@@ -79,21 +85,29 @@ def make_csf_optimizer(model: nn.Module, weight_decay: float = 5e-4
 
 
 def bce2d(logits: torch.Tensor, target: torch.Tensor,
-          reduction: str = "none") -> torch.Tensor:
+          reduction: str = "none",
+          spatial: SpatialCtx | None = None) -> torch.Tensor:
     """Class-balanced BCE-with-logits (reference solver.py:129-144): weight
     #neg/#total on positives and 1.1 * #pos/#total on negatives, in f32.
-    The reference defines it but its Solver never calls it."""
+    The reference defines it but its Solver never calls it. On row bands
+    (``spatial``) the counts are those of the whole images: the bands'
+    counts summed over the spatial group; a "sum" or "mean" reduction is
+    then this band's part."""
     target = target.float()
     pos = (target == 1).float()
     neg = (target == 0).float()
-    total = pos.sum() + neg.sum()
-    weights = neg.sum() / total * pos + 1.1 * pos.sum() / total * neg
+    counts = spatial_sum(torch.stack([
+        pos.sum(), neg.sum(), torch.tensor(float(target.numel()),
+                                           device=target.device)]), spatial)
+    n_pos, n_neg, numel = counts[0], counts[1], counts[2]
+    total = n_pos + n_neg
+    weights = n_neg / total * pos + 1.1 * n_pos / total * neg
     bce = weights * F.binary_cross_entropy_with_logits(
         logits.float(), target, reduction="none")
     if reduction == "none":
         return bce
     if reduction == "mean":
-        return bce.mean()
+        return bce.mean() if spatial is None else bce.sum() / numel
     if reduction == "sum":
         return bce.sum()
     raise ValueError(f"invalid reduction {reduction!r}")
@@ -126,17 +140,23 @@ class CSFTrainStep:
     them writes ``lr`` into the optimizer, steps it and zeroes them. The
     loss stays on the device: the step never waits for it.
 
-    ``group`` (``parallel.mesh.data_group()``): ``batch`` is this rank's
-    rows, ``batch_size`` the global batch, and the accumulated gradients
-    are summed over the ranks before each apply. The returned loss is this
-    rank's share of the micro-step's loss.
+    ``mesh`` (``parallel.mesh.Mesh2D``): ``batch`` holds this rank's data
+    rows and, under a spatial axis, its band of each image's rows (mask
+    included) of images of height ``image_h``; ``batch_size`` is the
+    global batch, and the accumulated gradients are summed over the world
+    before each apply. The returned loss is this rank's share of the
+    micro-step's loss.
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  *, iter_size: int = 10, batch_size: int = 1,
                  compute_dtype: torch.dtype | None = None,
-                 from_u8: bool = False, remat: bool = False, group=None):
-        self.group = group
+                 from_u8: bool = False, remat: bool = False,
+                 mesh: Mesh2D | None = None, image_h: int | None = None):
+        if mesh is not None and mesh.spatial > 1 and not image_h:
+            raise ValueError("a spatial mesh needs the images' height")
+        self.group = mesh.world if mesh is not None else None
+        self.mesh, self.image_h = mesh, image_h
         self.model, self.optimizer = model, optimizer
         self.iter_size, self.batch_size = iter_size, batch_size
         self.compute_dtype, self.from_u8, self.remat = (compute_dtype,
@@ -157,10 +177,13 @@ class CSFTrainStep:
             image = image.to(self.compute_dtype)
         if not self.model.training:
             self.model.train()
+        args = (image,)
+        if self.mesh is not None and self.mesh.spatial > 1:
+            args = (image, SpatialCtx(self.mesh, self.image_h))
         if self.remat:
-            logits = checkpoint(self.model, image, use_reentrant=False)
+            logits = checkpoint(self.model, *args, use_reentrant=False)
         else:
-            logits = self.model(image)
+            logits = self.model(*args)
         loss = csf_loss(logits, target, mask, self.iter_size,
                         self.batch_size)
         loss.backward()

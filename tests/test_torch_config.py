@@ -3,7 +3,7 @@ parameter count against the JAX package's.
 
 - ``get_cfg()`` of both packages agree key for key (names, values, types)
   but for the backend node: the JAX package's ``TPU`` is ``CUDA`` here,
-  without MESH_DEVICES, MESH_SHAPE, PALLAS_DW and ORBAX (``_DROPPED``).
+  without MESH_DEVICES, PALLAS_DW and ORBAX (``_DROPPED``).
 - The YAML-subset reader equals ``yaml.safe_load`` (YAML 1.1) on YAMLs
   written here: every key of the schema at a non-default value, the
   dot-less exponents that stay strings (``1e-20``), floats, flow lists,
@@ -35,7 +35,7 @@ from sod100k_tpu_torch.train.checkpoint import save_checkpoint
 from sod100k_tpu_torch.utils import profiler
 
 # the JAX package's TPU node is CUDA here, less these keys
-_DROPPED = {"MESH_DEVICES", "MESH_SHAPE", "PALLAS_DW", "ORBAX"}
+_DROPPED = {"MESH_DEVICES", "PALLAS_DW", "ORBAX"}
 
 
 def _flat(node, prefix=""):

@@ -418,8 +418,8 @@ def test_fetcher_checks_the_sha256_prefix(tmp_path, monkeypatch):
 def test_test_info_and_argparse_defaults_match_the_jax_driver(tmp_path,
                                                               monkeypatch):
     """``main()`` of both drivers with no arguments and with --mode test:
-    the same config (the port lacks only --mesh_shape, which it
-    refuses)."""
+    the same config, --mesh_shape included (a malformed shape is refused
+    when the run starts, as the JAX driver's)."""
     import cli.csf as jcsf
 
     for mode in "e", "p", "d", "h", "s", "t", "m_r":
@@ -436,7 +436,9 @@ def test_test_info_and_argparse_defaults_match_the_jax_driver(tmp_path,
         csf.main(argv)
     for fn in ("run_csf_train", "run_csf_test"):
         want = dict(seen[("jax", fn)])
-        assert want.pop("mesh_shape") == "" and want["mesh_devices"] == 0
+        assert want["mesh_shape"] == "" and want["mesh_devices"] == 0
         assert seen[("port", fn)] == want
-    with pytest.raises(SystemExit):
-        csf.build_parser().parse_args(["--mesh_shape", "2"])
+    monkeypatch.undo()
+    cfg = csf.build_parser().parse_args(["--mesh_shape", "2"])
+    with pytest.raises(SystemExit, match="mesh shape must look like"):
+        csf.run_csf_train(cfg, log=lambda *a: None, device="cpu")

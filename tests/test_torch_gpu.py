@@ -514,3 +514,68 @@ def test_smoke_driver_on_the_card(cuda, tmp_path):
              "TMPDIR": str(tmp_path)})
     assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
     assert "[smoke] OK" in out.stdout
+
+
+def band_worker() -> None:
+    """One rank of ``test_band_tail_on_two_ranks``: its band of every main
+    tail shape at N=2 through ``fused_dw_chain_band`` (the kernel on band +
+    halo), the bands gathered and held against the plain version of the
+    whole map; exits non-zero on a miss."""
+    from sod100k_tpu_torch.parallel import mesh, multihost, spatial
+
+    assert multihost.init_from_env(lambda *_: None, backend="gloo")
+    torch.backends.cudnn.allow_tf32 = False
+    sp = spatial.SpatialCtx(mesh.make_mesh_2d(1, 2), 0)
+    dw_chain.spatial_launches = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, w, c in MAIN:
+            x, params = _inputs((2, c, h, w), dtype, "cuda", seed=h + c)
+            band = sp.shard(x).contiguous()
+            spatial.tag(band, h)
+            y = dw_chain.fused_dw_chain_band(
+                band, dw_chain.pack_params(*params), sp)
+            a, b = sp.band(h)
+            assert y.shape == (2, c, b - a, w)
+            _check(spatial.gather_bands(y, sp), x, params, dtype)
+    torch.cuda.synchronize()
+    assert dw_chain.spatial_launches == 2 * len(MAIN), \
+        dw_chain.spatial_launches
+
+
+def test_band_tail_on_two_ranks(cuda, tmp_path):
+    """Two ranks share the card over gloo (CUDA tensors), a 1 x 2 mesh:
+    each runs the kernel on its band plus a 2-row halo of every main tail
+    shape at N=2; the gathered bands equal the plain version of the whole
+    map at the kernel's bars, and every band call launched the kernel."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "band"], cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": repo, "TMPDIR": str(tmp_path),
+             "SOD100K_COORDINATOR": f"127.0.0.1:{port}",
+             "SOD100K_NUM_PROCESSES": "2", "SOD100K_PROCESS_ID": str(r)})
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out[-4000:]}"
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:] == ["band"]:
+        band_worker()

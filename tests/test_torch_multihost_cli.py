@@ -27,8 +27,9 @@ driver itself joins the world (``cli.common.init_data_parallel``):
    primary alone (the same maps); the resident TESTALL sweep's table
    equal on both ranks and to the single process's (to the report's six
    decimals);
-3. ``cli.csf --mode test`` refuses two processes with the JAX driver's
-   message, exit non-zero.
+3. ``cli.csf --mode test`` refuses two processes at --test_batch 1 (one
+   image cannot split its batch rows over two data ranks), exit non-zero.
+   Test mode across processes is ``test_torch_spatial_cli.py``'s.
 """
 
 import json
@@ -220,7 +221,7 @@ def test_csf_test_mode_refuses_two_processes(tmp_path):
                      str(tmp_path / "maps")], tmp_path)
     for rc, text in res:
         assert rc != 0
-        assert "CSF test mode is single-host" in text, text
+        assert "data axis 2 must divide --test_batch=1" in text, text
 
 
 if __name__ == "__main__":

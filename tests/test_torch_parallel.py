@@ -155,14 +155,15 @@ def csnet_batches(b=B, hw=HW, steps=STEPS):
     return out
 
 
-def csnet_run(group=None, b=B, hw=HW, steps=STEPS) -> tuple:
+def csnet_run(m=None, b=B, hw=HW, steps=STEPS) -> tuple:
     """``steps`` SGD steps of the CSNet train step with the penalty on, at
-    a global batch ``b``; the losses, penalties, the parameter checksum and
-    the state dict after each step."""
-    model = mesh.replicate(CSNet(LC, seed=3, device="cpu"), group)
+    a global batch ``b`` (on the data mesh ``m``); the losses, penalties,
+    the parameter checksum and the state dict after each step."""
+    model = mesh.replicate(CSNet(LC, seed=3, device="cpu"),
+                           m.world if m is not None else None)
     step = make_train_step(model, make_sgd(model, momentum=0.9),
                            flops_weight=FW, flops_expand=2.0, batch_size=b,
-                           group=group)
+                           mesh=m)
     losses, pens, states = [], [], []
     for batch in csnet_batches(b, hw, steps):
         m = step(multihost.local_slice_feed(batch), LR, 1.0)
@@ -182,7 +183,7 @@ def csf_batches():
                         ).astype(np.float32)} for _ in range(CSF_ITER)]
 
 
-def csf_run(group=None) -> tuple:
+def csf_run(m=None) -> tuple:
     """One optimizer apply (iter_size micro-steps) of the CSF step at a
     global batch of 2; the initial and final state dicts."""
     model = CSFNet("res2net50", seed=2, device="cpu")
@@ -191,13 +192,13 @@ def csf_run(group=None) -> tuple:
     opt = torch.optim.SGD([p for p in model.parameters() if p.requires_grad],
                           lr=0.0, weight_decay=CSF_WD)
     step = CSFTrainStep(model, opt, iter_size=CSF_ITER, batch_size=2,
-                        group=group)
+                        mesh=m)
     for batch in csf_batches():
         step(multihost.local_slice_feed(batch), CSF_LR)
     return init, model.state_dict()
 
 
-def resident_rows(group=None) -> dict:
+def resident_rows(m=None) -> dict:
     """The batches the step receives in one resident CSNet epoch and one
     resident CSF epoch of a 16-image store at a global batch of 8
     (recorded; the step trains nothing)."""
@@ -219,9 +220,9 @@ def resident_rows(group=None) -> dict:
         return record
 
     make_resident_epoch_fn(recorder("csnet"), batch_size=8, out_hw=(32, 32),
-                           max_crop=3, group=group)(
+                           max_crop=3, mesh=m)(
         data, torch.Generator().manual_seed(4), 0.0, 1.0)
-    make_resident_csf_epoch_fn(recorder("csf"), batch_size=8, group=group)(
+    make_resident_csf_epoch_fn(recorder("csf"), batch_size=8, mesh=m)(
         data, torch.Generator().manual_seed(5), 0.0)
     return {k: torch.stack(v) for k, v in seen.items()}
 
@@ -229,7 +230,8 @@ def resident_rows(group=None) -> dict:
 def worker(role: str) -> None:
     torch.set_num_threads(1)
     assert multihost.init_from_env(), "the worker needs SOD100K_* variables"
-    group = mesh.data_group()
+    dm = mesh.data_mesh()
+    group = dm.world
     out = {"rank": mesh.rank(), "primary": multihost.is_primary()}
     if role == "bn":
         x, dy, p = bn_inputs()
@@ -241,17 +243,17 @@ def worker(role: str) -> None:
         r["dw"], r["db"] = bn.weight.grad.numpy(), bn.bias.grad.numpy()
         out.update({k: np.asarray(v).tolist() for k, v in r.items()})
     elif role == "csnet":
-        losses, pens, checksum, _ = csnet_run(group)
+        losses, pens, checksum, _ = csnet_run(dm)
         out.update(losses=losses, pens=pens, checksum=checksum)
-        small = csnet_run(group, JAX_B, JAX_HW, 1)
+        small = csnet_run(dm, JAX_B, JAX_HW, 1)
         out.update(small_loss=small[0][0], small_pen=small[1][0])
         if multihost.is_primary():
             torch.save(small[3][0], os.environ["DP_STATE_OUT"])
     elif role == "rows":
-        torch.save(resident_rows(group), os.environ["DP_STATE_OUT"]
+        torch.save(resident_rows(dm), os.environ["DP_STATE_OUT"]
                    + f".{mesh.rank()}")
     elif role == "csf":
-        init, final = csf_run(group)
+        init, final = csf_run(dm)
         if multihost.is_primary():
             torch.save(final, os.environ["DP_STATE_OUT"])
         out["checksum"] = float(sum(v.double().abs().sum()
@@ -303,10 +305,13 @@ def test_helpers_single_process_fallbacks(monkeypatch):
     assert not multihost.init_from_env()
     assert not multihost.is_multihost() and multihost.is_primary()
     assert mesh.world_size() == 1 and mesh.rank() == 0
-    assert mesh.data_group() is None
+    dm = mesh.data_mesh()
+    assert dm.shape == "1x1" and (dm.data_index, dm.spatial_index) == (0, 0)
+    assert dm.world is None and dm.data_group is None \
+        and dm.spatial_group is None
     assert mesh.local_device() == torch.device("cpu")
     assert multihost.process_slice(8) == slice(0, 8)
-    assert mesh.row_slice(8, None) == slice(None)
+    assert dm.rows(8) == slice(0, 8)
     batch = {"image": np.zeros((8, 4, 4, 3), np.float32), "meta": "x"}
     assert multihost.local_slice_feed(batch) is batch
     multihost.barrier("noop")
