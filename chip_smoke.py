@@ -206,6 +206,25 @@ Phases; any failure exits non-zero:
    Printed, not gated: halo bytes and exchanges per forward and step, ms
    per forward and step on each rank against one process, the phase's
    wall time.
+16. the resident programs on the 2-D mesh (``data/resident.py`` under
+   ``Mesh2D``): two ranks share the card over gloo as 1 x 2, beside 13a
+   after phase 15; the tail kernel's launches over 16b and 16d are the
+   kernels line's ``resident_mesh_launches``:
+16a. the resident CSNet-L epoch, f32, a 256^2 store, out 224^2, B=4, one
+   batch, Adam with dynamic weight decay, the penalty on, against one
+   process on the same draws: loss and penalty within rel 1e-5, the state
+   after the step within 1e-3 * max(1, max|leaf|);
+16b. the resident TESTALL sweep through ``run_testall_resident`` on the
+   mesh and the resident validation, f32, on 14c's calibrated CSNet-L and
+   split: each rank's table equal to one process's at six decimals, the
+   val MAE within 1e-6, ``n`` equal to the split's size, the tail kernel
+   launched on every rank's bands;
+16c. the resident CSF epoch, Res2Net-50 at 336^2, B=2, one micro-step, the
+   draws given: the loss within rel 1e-5 of one process's, the update's
+   checksum within rel 1e-4;
+16d. ``python -m sod100k_tpu_torch.cli.smoke --dry-data --mesh_shape
+   1x2`` (64 px, one train and one finetune epoch) as two ranks: each
+   reports ``[smoke] OK`` and a resident sweep epoch >= 1.
 
 Needs torch with CUDA and nvcc; no jax, cv2, PIL or yaml. The second line from
 the end is a JSON summary of the kernels; the last line is the run's JSON
@@ -2792,6 +2811,8 @@ def dp_worker(role: str, args_path: str) -> None:
         out.update(dp_steps(args, mesh.data_mesh()))
     elif role == "spatial":
         out.update(spatial_worker(args))
+    elif role == "resident":
+        out.update(resident_worker(args))
     else:
         out["reports"] = dp_sweep(args)
     torch.cuda.synchronize()
@@ -3029,20 +3050,20 @@ def sweep_cfg(root: str):
 
 
 def dp_sweep(args: dict) -> list:
-    """The resident TESTALL sweep through the driver; its report lines."""
+    """The resident TESTALL sweep through the driver, on the mesh of
+    ``args["mesh_shape"]`` if given; its report lines."""
     from sod100k_tpu_torch.cli.test import run_testall_resident
 
+    cfg = sweep_cfg(args["root"])
+    cfg.CUDA.MESH_SHAPE = args.get("mesh_shape", "")
     reports = []
-    run_testall_resident(sweep_cfg(args["root"]), log=reports.append)
+    run_testall_resident(cfg, log=reports.append)
     return [r for r in reports if "[resident]" in r]
 
 
-def phase_dp_sweep(root: str, tmp: str, gpu: str) -> int:
-    """14c: two processes run the resident TESTALL sweep of a calibrated
-    CSNet-L over DP_SWEEP_PAIRS images (the batches split over the ranks,
-    the metric sums all-reduced): every rank's table equals the single
-    process's to the report's six decimals. Returns the fused_dw_chain
-    launches of both runs."""
+def write_sweep_tree(root: str) -> None:
+    """The split (DP_SWEEP_PAIRS synthetic pairs) and the checkpoint of a
+    CSNet-L calibrated on 12 of its images that ``sweep_cfg(root)`` reads."""
     make_synth_split(os.path.join(root, "ECSSD-DP"), DP_SWEEP_PAIRS, seed=8)
     lc = init_layers(40, (0.5, 0.5))
     model = CSNet(lc, seed=5, device="cuda")
@@ -3055,6 +3076,15 @@ def phase_dp_sweep(root: str, tmp: str, gpu: str) -> int:
     save_checkpoint(os.path.join(root, "dp_sweep", "checkpoint",
                                  "checkpoint_epoch1.pth.tar"), model, None,
                     epoch=1)
+
+
+def phase_dp_sweep(root: str, tmp: str, gpu: str) -> int:
+    """14c: two processes run the resident TESTALL sweep of a calibrated
+    CSNet-L over DP_SWEEP_PAIRS images (the batches split over the ranks,
+    the metric sums all-reduced): every rank's table equals the single
+    process's to the report's six decimals. Returns the fused_dw_chain
+    launches of both runs."""
+    write_sweep_tree(root)
     dw_chain.launches = 0
     t0 = time.perf_counter()
     want = dp_sweep({"root": root})
@@ -3508,6 +3538,293 @@ def phase_spatial(gpu: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The resident programs on the 2-D mesh (phase 16)
+
+RM_BATCH = 4            # (a): one batch of the store: nb = 1
+RM_STORE = 256          # (a): the resident store's size (the JAX default)
+RM_LR = 1e-4            # (a): the JAX oracle's (tests/test_parallel.py:371)
+RM_CSF_BATCH = 2        # (c)
+RM_SMOKE_HW = 64        # (d): the smoke chain's image size
+
+
+def _resident_store(n: int, hw: int, seed: int) -> dict:
+    """``n`` synthetic pairs at ``hw``^2 as a resident store on the card."""
+    pairs = list(synth_pairs(n, hw=(hw, hw), alternate_orientation=False,
+                             seed=seed))
+    return {"image_u8": torch.from_numpy(np.stack([p[0] for p in pairs]))
+            .cuda(),
+            "gt_u8": torch.from_numpy(np.stack([p[1] for p in pairs])).cuda()}
+
+
+def resident_epoch(state: str, m=None) -> tuple[dict, dict]:
+    """(a): one resident CSNet-L epoch, f32, one batch of RM_BATCH from a
+    RM_STORE^2 store, Adam with dynamic weight decay, the penalty on, the
+    permutation and crops from one seeded generator; (its loss and
+    penalty, the state after it)."""
+    model = CSNet(init_layers(40, (0.5, 0.5)), device="cuda")
+    model.load_state_dict(torch.load(state, map_location="cuda"))
+    kw = {} if m is None else {"mesh": m, "image_h": HW[0]}
+    step = make_train_step(model, make_adam_dwd(model), **PENALTY,
+                           batch_size=RM_BATCH, **kw)
+    epoch = make_resident_epoch_fn(step, batch_size=RM_BATCH, out_hw=HW,
+                                   max_crop=MAX_CROP, mesh=m)
+    gen = torch.Generator("cuda").manual_seed(16)
+    losses, pens = epoch(_resident_store(RM_BATCH, RM_STORE, 16), gen, RM_LR,
+                         1.0)
+    return ({"losses": losses.tolist(), "penalties": pens.tolist()},
+            {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()})
+
+
+def resident_eval(root: str, m=None) -> dict:
+    """(b): the resident validation and the sweep's image count over the
+    sweep tree's split, on the checkpoint ``sweep_cfg`` reads."""
+    model = CSNet(init_layers(40, (0.5, 0.5)), device="cuda")
+    model.load_state_dict(torch.load(os.path.join(
+        root, "dp_sweep", "checkpoint", "checkpoint_epoch1.pth.tar"),
+        map_location="cuda", weights_only=False)["state_dict"])
+    data = build_resident_val_dataset(
+        SalData(os.path.join(root, "ECSSD-DP"), HW, mode="val"), HW,
+        DP_SWEEP_BATCH, device="cuda")
+    canvas = data.pop("_canvas_hw")
+    es = make_eval_step(model, from_u8=True, mesh=m)
+    sums = make_resident_salmetric_fn(es, batch_size=DP_SWEEP_BATCH,
+                                      canvas_hw=canvas, mesh=m)(data)
+    val = make_resident_val_fn(es, batch_size=DP_SWEEP_BATCH,
+                               canvas_hw=canvas, mesh=m)(data)
+    return {"n": float(sums["n"].sum()), "mae_sum": sums["mae_sum"].tolist(),
+            "val": float(val)}
+
+
+def resident_csf_epoch(state: str, m=None) -> dict:
+    """(c): one resident CSF epoch of one micro-step, Res2Net-50 at
+    SP_CSF_HW^2, f32, B=RM_CSF_BATCH, the draws given: the global loss and
+    the checksum of the trainable parameters' update."""
+    from sod100k_tpu_torch.parallel import mesh
+
+    model = CSFNet("res2net50", device="cuda")
+    model.load_state_dict(torch.load(state, map_location="cuda"))
+    freeze_reference_params(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    kw = {} if m is None else {"mesh": m, "image_h": SP_CSF_HW}
+    step = make_csf_train_step(model, make_csf_optimizer(model, CSF_WD),
+                               iter_size=1, batch_size=RM_CSF_BATCH, **kw)
+    draws = (np.array([[1, 0]]), np.array([[True, False]]))
+    losses = make_resident_csf_epoch_fn(
+        step, batch_size=RM_CSF_BATCH, mesh=m)(
+        _resident_store(RM_CSF_BATCH, SP_CSF_HW, 17), None, CSF_LR,
+        draws=draws)
+    # each rank returns its band's share: the driver sums over the world
+    loss = mesh.all_reduce_sum({"loss": losses},
+                               None if m is None else m.world)["loss"]
+    after = dict(model.named_parameters())
+    return {"loss": float(loss.sum()),
+            "update": sum(float((after[n].detach() - p).double().abs().sum())
+                          for n, p in before.items())}
+
+
+def resident_worker(args: dict) -> dict:
+    """One rank of phase 16's 1 x 2 world (two ranks on the one card over
+    gloo): (a) the resident CSNet-L epoch, (b) the resident TESTALL sweep
+    through the driver and the resident validation, (c) the resident CSF
+    epoch. Rank 0 saves (a)'s state next to the args file."""
+    from sod100k_tpu_torch.parallel import mesh, multihost
+
+    m = mesh.make_mesh_2d(1, 2)
+    out, state = {}, {}
+    out["a"], state = resident_epoch(args["csnet"], m)
+    if multihost.is_primary():
+        torch.save(state, args["a_state"])
+    dw_chain.launches = dw_chain.spatial_launches = 0
+    out["b"] = {"reports": dp_sweep({"root": args["root"],
+                                     "mesh_shape": "1x2"}),
+                **resident_eval(args["root"], m)}
+    torch.cuda.synchronize()
+    out["b"]["launches"] = dw_chain.launches
+    out["b"]["spatial_launches"] = dw_chain.spatial_launches
+    out["c"] = resident_csf_epoch(args["csf"], m)
+    return out
+
+
+SMOKE_SHIM = """\
+import atexit, json, runpy, sys
+from sod100k_tpu_torch.ops import dw_chain
+from sod100k_tpu_torch.parallel import multihost
+multihost.init_from_env(backend="gloo")  # two ranks on one card
+atexit.register(lambda: print("LAUNCHES " + json.dumps(
+    [dw_chain.launches, dw_chain.spatial_launches]), flush=True))
+sys.argv = ["sod100k_tpu_torch.cli.smoke", *sys.argv[1:]]
+runpy.run_module("sod100k_tpu_torch.cli.smoke", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def phase_smoke_mesh(tmp: str, gpu: str) -> tuple[int, float]:
+    """(d): ``python -m sod100k_tpu_torch.cli.smoke --dry-data --mesh_shape
+    1x2 --train-epochs 1`` as two ranks on the card (run through a shim
+    that joins over gloo, which the card's two ranks need, and prints the
+    kernel's launch counts at exit). Returns the launches and the wall
+    time."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    argv = ["--dry-data", "--mesh_shape", "1x2", "--train-epochs", "1",
+            "--image-hw", str(RM_SMOKE_HW), "--save-dir",
+            os.path.join(tmp, "smoke")]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for pid in range(2):
+            env = {**os.environ, "PYTHONPATH": repo,
+                   "SOD100K_COORDINATOR": f"127.0.0.1:{port}",
+                   "SOD100K_NUM_PROCESSES": "2",
+                   "SOD100K_PROCESS_ID": str(pid)}
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", SMOKE_SHIM, *argv], cwd=repo, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    launches = 0
+    for pid, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            say(text[-4000:])
+        check(p.returncode == 0, f"16d: cli.smoke rank {pid} exit "
+              f"{p.returncode}")
+        ok = [l for l in text.splitlines() if l.startswith("[smoke] OK")]
+        check(len(ok) == 1, f"16d: rank {pid} reports [smoke] OK")
+        epoch = re.search(r"resident_eval=.*'epoch': (-?\d+)", ok[0])
+        check(epoch is not None and int(epoch.group(1)) >= 1,
+              f"16d: rank {pid}'s resident sweep scored an epoch >= 1")
+        total, band = json.loads([l for l in text.splitlines()
+                                  if l.startswith("LAUNCHES ")][-1][9:])
+        check(band > 0, f"16d: rank {pid}'s chain ran the band kernel")
+        launches += total
+        say(f"  16d rank {pid}: {ok[0][:160]}; {total} tail launches, "
+            f"{band} on bands")
+    say(f"  16d cli.smoke --mesh_shape 1x2: {wall:.1f} s for the two-rank "
+        f"chain (process start included)  [{gpu}]")
+    return launches, wall
+
+
+def phase_resident_mesh(gpu: str) -> int:
+    """Phase 16: the resident programs on the 2-D mesh. Two ranks share
+    the card over gloo as a 1 x 2 mesh, as in phase 15.
+
+    (a) the resident CSNet-L epoch, f32, full width, a 256^2 store, out
+        224^2, B=4, one batch (nb = 1: tests/test_parallel.py:336-342),
+        Adam with dynamic weight decay at lr 1e-4, the penalty on, against
+        one process on the same draws: loss and penalty within rel 1e-5,
+        every parameter and BN statistic after the step within 1e-3 *
+        max(1, max|leaf|);
+    (b) the resident TESTALL sweep through the driver (``cli.test``'s
+        ``run_testall_resident`` with CUDA.MESH_SHAPE "1x2") and the
+        resident validation, f32, on 14c's calibrated CSNet-L and split:
+        each rank's report table equal to one process's at the report's
+        six decimals, the val MAE within 1e-6, the sweep's image count
+        equal to the split's; every rank's sweep launched the tail kernel
+        on its bands (``dw_chain.spatial_launches``, counted at the launch
+        site);
+    (c) the resident CSF epoch, Res2Net-50 at 336^2, B=2, one micro-step,
+        the draws given, against one process: the loss within rel 1e-5,
+        the checksum of the trainable parameters' update within rel 1e-4;
+    (d) ``cli.smoke --dry-data --mesh_shape 1x2`` at 64 px, one train and
+        one finetune epoch, as two ranks: each reports ``[smoke] OK`` and
+        a resident sweep epoch >= 1.
+
+    Returns the tail kernel's launches over (b) and (d) on every rank
+    (``resident_mesh_launches``)."""
+    t16 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        model = CSNet(init_layers(40, (0.5, 0.5)), seed=0, device="cuda")
+        calib = np.random.default_rng(1).integers(0, 256, (4, *HW, 3),
+                                                  np.uint8)
+        calibrate_bn(model, normalize_u8(torch.from_numpy(calib).cuda()))
+        root = os.path.join(tmp, "root")
+        write_sweep_tree(root)
+        args = {"root": root, "csnet": os.path.join(tmp, "csnet.pt"),
+                "csf": os.path.join(tmp, "csf.pt"),
+                "a_state": os.path.join(tmp, "a_state.pt")}
+        torch.save(model.state_dict(), args["csnet"])
+        del model
+        torch.save(he_scale(CSFNet("res2net50", seed=0, device="cpu"), 24)
+                   .state_dict(), args["csf"])
+        t0 = time.perf_counter()
+        ranks = run_dp_ranks("resident", args, tmp)
+        two_s = time.perf_counter() - t0
+
+        # (a)
+        want, want_state = resident_epoch(args["csnet"])
+        got_state = torch.load(args["a_state"])
+        for r in ranks:
+            check(r["a"] == ranks[0]["a"], "16a: the same (all-reduced) "
+                  "loss and penalty on both ranks")
+        a = ranks[0]["a"]
+        rel_l = abs(a["losses"][0] - want["losses"][0]) / want["losses"][0]
+        rel_p = abs(a["penalties"][0] - want["penalties"][0]) \
+            / want["penalties"][0]
+        worst = max(float((got_state[k].float() - v.float()).abs().max())
+                    / max(1.0, float(v.float().abs().max()))
+                    for k, v in want_state.items() if v.is_floating_point())
+        say(f"  16a resident CSNet-L epoch, f32, B={RM_BATCH}: loss "
+            f"{a['losses'][0]:.8f} vs {want['losses'][0]:.8f} (rel "
+            f"{rel_l:.2e}), penalty rel {rel_p:.2e}, the state after the "
+            f"step within {worst:.2e} of max(1, max|leaf|)  [{gpu}]")
+        check(rel_l <= 1e-5 and rel_p <= 1e-5, "16a: loss and penalty "
+              "within rel 1e-5")
+        check(worst <= 1e-3, "16a: the state within 1e-3 * max(1, "
+              "max|leaf|)")
+
+        # (b)
+        dw_chain.launches = 0
+        reports = dp_sweep({"root": root})
+        one = resident_eval(root)
+        n_split = len(os.listdir(os.path.join(root, "ECSSD-DP", "images")))
+        launches = 0
+        for r in ranks:
+            b = r["b"]
+            say(f"  16b rank {r['rank']}: {b['reports'][0]}; val MAE "
+                f"{b['val']:.9f}, n {b['n']:.0f}; {b['launches']} tail "
+                f"launches, {b['spatial_launches']} on bands")
+            check(b["reports"] == reports, "16b: the rank's table equals "
+                  "one process's to six decimals")
+            check(abs(b["val"] - one["val"]) <= 1e-6, "16b: val MAE within "
+                  "1e-6")
+            check(b["n"] == one["n"] == n_split, "16b: n is the split's "
+                  "image count")
+            check(b["spatial_launches"] > 0, "16b: the rank's sweep ran the "
+                  "tail kernel on its bands")
+            launches += b["launches"]
+        say(f"  16b one process: {reports[0]}; val MAE {one['val']:.9f}; "
+            f"{dw_chain.launches} launches")
+
+        # (c)
+        c = ranks[0]["c"]
+        want_c = resident_csf_epoch(args["csf"])
+        rel_c = abs(c["loss"] - want_c["loss"]) / abs(want_c["loss"])
+        rel_u = abs(c["update"] - want_c["update"]) / want_c["update"]
+        say(f"  16c resident CSF epoch at {SP_CSF_HW}^2, B={RM_CSF_BATCH}: "
+            f"loss {c['loss']:.6f} vs {want_c['loss']:.6f} (rel "
+            f"{rel_c:.2e}), update checksum rel {rel_u:.2e}  [{gpu}]")
+        check(ranks[1]["c"] == c, "16c: the same loss and update on both "
+              "ranks")
+        check(rel_c <= 1e-5, "16c: loss within rel 1e-5")
+        check(rel_u <= 1e-4, "16c: update checksum within rel 1e-4")
+
+        # (d)
+        smoke_launches, _ = phase_smoke_mesh(tmp, gpu)
+        launches += smoke_launches
+    say(f"  phase 16 took {time.perf_counter() - t16:.1f} s (the two-rank "
+        f"run of (a)-(c) {two_s:.1f} s, process start included); "
+        f"{launches} tail launches over 16b and 16d  [{gpu}]")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -3649,6 +3966,9 @@ def main() -> None:
                 "(sod100k_tpu_torch.parallel.spatial), two ranks on the "
                 "card as 1 x 2")
             spatial_launches = phase_spatial(gpu)
+            say("phase 16: the resident programs on the 2-D mesh, two "
+                "ranks on the card as 1 x 2")
+            resident_mesh_launches = phase_resident_mesh(gpu)
         except BaseException:
             proc, log, _ = trajectory
             proc.kill()
@@ -3656,7 +3976,7 @@ def main() -> None:
             log.close()
             raise
         tools_launches = finish_trajectory(trajectory, gpu)
-    say(f"  phases 13 to 15 took {time.perf_counter() - t13:.1f} s  "
+    say(f"  phases 13 to 16 took {time.perf_counter() - t13:.1f} s  "
         f"[{gpu}]")
 
     print(json.dumps({"kernels": [{
@@ -3677,7 +3997,8 @@ def main() -> None:
         "cli_launches": cli_launches,
         "csf_cli_launches": csf_cli_launches,
         "tools_launches": tools_launches, "dp_launches": dp_launches,
-        "spatial_launches": spatial_launches}]}))
+        "spatial_launches": spatial_launches,
+        "resident_mesh_launches": resident_mesh_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

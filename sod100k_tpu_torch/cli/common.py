@@ -17,10 +17,10 @@ Parallelism (``parallel/``): every driver calls ``init_data_parallel`` or
 run's mesh (``parallel.mesh.Mesh2D``): the W x 1 data mesh of the world,
 or the D x S mesh of CUDA.MESH_SHAPE "DxS", the batch over D and each
 image's rows over S (``parallel.spatial``), with the JAX drivers' refusals
-(``sod100k_tpu``'s ``cli/common.py::data_mesh_for``). The resident
-programs do not run on a spatial axis yet: ``refuse_resident_mesh`` says
-so. The primary alone writes logs, architecture snapshots and
-checkpoints; the others wait at a barrier before they read what it wrote.
+(``sod100k_tpu``'s ``cli/common.py::data_mesh_for``). Every front-end,
+the resident ones included, runs on that mesh. The primary alone writes
+logs, architecture snapshots and checkpoints; the others wait at a
+barrier before they read what it wrote.
 """
 
 from __future__ import annotations
@@ -44,18 +44,6 @@ from ..train.checkpoint import save_checkpoint
 from ..utils.profiler import FLOP_COUNTER, simplesum
 
 PREPROCESS_MODES = ("host", "hybrid", "device", "resident")
-
-
-RESIDENT_MESH_LATER = (
-    "is not ported to the 2-D mesh yet: it is the next slice of the port "
-    "(ROADMAP.md, Queue A: the resident programs under a 2-D mesh). Drop "
-    "the mesh shape, or use a host, hybrid or device front-end")
-
-
-def refuse_resident_mesh(mesh_flag: str, what: str) -> None:
-    """The boundary of the 2-D mesh: a resident program with a mesh exits
-    (nothing runs on one rank in its place)."""
-    raise SystemExit(f"{mesh_flag} with {what} {RESIDENT_MESH_LATER}")
 
 
 def build_mesh_2d(spec: str, flag: str, *, batch_size: int, batch_flag: str,
@@ -90,15 +78,11 @@ def build_mesh_2d(spec: str, flag: str, *, batch_size: int, batch_flag: str,
 
 
 def init_parallel(cfg, device, log=print, *, image_h: int,
-                  stride2_factor: int, resident: str = ""):
+                  stride2_factor: int):
     """``init_data_parallel``, then the 2-D mesh when CUDA.MESH_SHAPE asks
     for one (DATA.BATCH_SIZE over its data axis, images of ``image_h``
-    rows over its spatial axis). ``resident`` names the resident setting
-    the run uses, if any, which a mesh refuses before anything starts.
-    Returns (device, the mesh: the data mesh without CUDA.MESH_SHAPE)."""
-    if cfg.CUDA.MESH_SHAPE and resident:
-        refuse_resident_mesh(f"CUDA.MESH_SHAPE={cfg.CUDA.MESH_SHAPE}",
-                             resident)
+    rows over its spatial axis). Returns (device, the mesh: the data mesh
+    without CUDA.MESH_SHAPE)."""
     device, m = init_data_parallel(device, log)
     if cfg.CUDA.MESH_SHAPE:
         m = build_mesh_2d(cfg.CUDA.MESH_SHAPE,
@@ -261,11 +245,11 @@ class TrainFeeds:
     On a ``mesh`` (``parallel.mesh.Mesh2D``) DATA.BATCH_SIZE is the global
     batch: every rank draws the same global batches and trains on its data
     index's rows and, under a spatial axis, its band of their rows (the
-    device front-end cuts the band after its resize). The resident
-    validation splits its batches over the ranks; the host one runs every
-    batch on every rank (the same number everywhere), each spatial rank on
-    its band (``make_eval_step(mesh=...)``). ``init_parallel`` refuses the
-    resident mode with a spatial axis."""
+    device and resident front-ends cut the band after their resize,
+    ``Mesh2D.cut_bands``). The resident validation splits its batches over
+    the data indices; the host one runs every batch on every rank (the
+    same number everywhere). Both run each spatial rank on its band
+    (``make_eval_step(mesh=...)``)."""
 
     def __init__(self, cfg, step, model: nn.Module, device, log, *,
                  resident_seed: int, tag: str, mesh=None):
@@ -314,7 +298,8 @@ class TrainFeeds:
             canvas_hw = vdata.pop("_canvas_hw")
             self.resident_val = vdata
             self.val_fn = make_resident_val_fn(
-                make_eval_step(model, from_u8=True), batch_size=batch,
+                make_eval_step(model, from_u8=True, mesh=mesh),
+                batch_size=batch,
                 canvas_hw=canvas_hw, mesh=mesh)
             log(f"resident val set: {len(self.val_ds)} images, native "
                 f"canvas {canvas_hw}, {_mib(vdata):.0f} MiB on {device}")
@@ -363,9 +348,8 @@ class TrainFeeds:
                     batch["image_u8"], batch["gt_u8"], batch["valid_hw"],
                     draws={k: v[rows] for k, v in d.items()},
                     out_hw=self.hw)
-                if m2 is not None and m2.spatial > 1:
-                    lo, hi = m2.band(self.hw[0])
-                    feed = {k: v[:, lo:hi] for k, v in feed.items()}
+                if m2 is not None:
+                    feed = m2.cut_bands(feed)
             elif self.mode == "hybrid":
                 feed = {"image": batch["image_u8"],
                         "target": batch["target_u8"]}

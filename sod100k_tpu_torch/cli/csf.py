@@ -30,14 +30,16 @@ each image's rows over S (``parallel.spatial``), the lever for the
 reference's batch-1 x iter_size-10 recipe, where data parallelism alone
 cannot use a second card. It needs a fixed --image_size like every
 multi-process run, so the JAX driver's per-bucket fallback to a data-only
-layout (for bucket heights its extent check refuses) does not arise here;
---preprocess resident with a mesh is refused (the next slice).
+layout (for bucket heights its extent check refuses) does not arise here.
+--preprocess resident runs on the mesh too: every rank holds the whole
+store, draws the same order and flips, and trains on its rows and band.
 
 Test mode runs on one process, or across the world: --test_batch
 dispatches split over the processes (1-D, --mesh_devices: each rank its
 rows), or over a 2-D --mesh_shape (rows over D, each image's rows over S;
 an image height the extent check refuses runs whole on each spatial
-rank). The primary writes the same PNGs as one process.
+rank). The primary writes the same PNGs as one process. --preprocess is
+a training flag: test mode ignores it, as the JAX driver does.
 
 Solver semantics (solver.py): frozen-BN backbone, Adam 5e-5 with coupled
 L2 5e-4 over the trainable parameters, gradients summed over iter_size
@@ -68,8 +70,7 @@ from ..train.checkpoint import save_checkpoint
 from ..train.csf_step import (CSFTrainStep, freeze_reference_params,
                               make_csf_optimizer)
 from ..train.step import make_eval_step
-from .common import (build_mesh_2d, init_data_parallel, model_device,
-                     refuse_resident_mesh)
+from .common import build_mesh_2d, init_data_parallel, model_device
 
 LR_DECAY_EPOCH = (15,)  # solver.py:24
 
@@ -170,8 +171,6 @@ def run_csf_train(config, log=print, *,
                   device: str | torch.device = "cuda") -> dict:
     spec = _mesh_shape(config)
     resident = getattr(config, "preprocess", "host") == "resident"
-    if spec and resident:
-        refuse_resident_mesh(f"--mesh_shape {spec}", "--preprocess resident")
     device, _ = init_data_parallel(device, log)
     mesh2d = _csf_mesh(config, batch_size=config.batch_size,
                        batch_flag="--batch_size", image_h=config.image_size,
@@ -302,10 +301,6 @@ def run_csf_test(config, log=print, *,
                  device: str | torch.device = "cuda") -> dict:
     if not config.model or not config.test_fold:
         raise SystemExit("--mode test needs --model and --test_fold")
-    if _mesh_shape(config) and \
-            getattr(config, "preprocess", "host") == "resident":
-        refuse_resident_mesh(f"--mesh_shape {_mesh_shape(config)}",
-                             "--preprocess resident")
     multihost.init_from_env(log)
     # --test_batch > 1: consecutive same-shape images share a forward; a
     # trailing partial batch is padded with its last image, whose extra

@@ -47,9 +47,7 @@ def run_finetune(cfg, from_epoch: int, max_epochs: int | None = None,
                  log=None, *, device: str | torch.device = "cuda") -> dict:
     device, mesh2d = init_parallel(
         cfg, device, log or print, image_h=cfg.DATA.IMAGE_H,
-        stride2_factor=DEEPEST_STRIDE2_FACTOR,
-        resident=("CUDA.PREPROCESS=resident"
-                  if cfg.CUDA.PREPROCESS == "resident" else ""))
+        stride2_factor=DEEPEST_STRIDE2_FACTOR)
     dirs = resolve_dirs(cfg)
     if log is None:
         log = Logger(dirs["base"], "logfinetune", dirs["task"])

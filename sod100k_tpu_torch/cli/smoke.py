@@ -15,14 +15,16 @@ FmeasureResults files.
 Reference flow: train.py -> finetune.py --epoch N -> test.py -> eval.py
 (SURVEY.md section 3).
 
-Under the SOD100K_* variables (or torchrun's) the chain runs data-parallel
-on the 1-D group, one process per card: every process is given the same
+Under the SOD100K_* variables (or torchrun's) the chain runs on the
+world's processes, one per card: every process is given the same
 --save-dir, the primary writes the synthetic tree and the outputs, and
-eval runs on the primary. The JAX driver's --mesh_shape runs this chain,
-its resident TESTALL sweep included, on the 2-D data x spatial mesh; the
-port's drivers run on that mesh (CUDA.MESH_SHAPE) but its resident
-programs do not yet, so --mesh_shape here is refused: it is the next slice
-(ROADMAP.md, Queue A).
+eval runs on the primary. Without --mesh_shape the world is a 1-D data
+mesh; --mesh_shape DxS makes its D*S processes a 2-D data x spatial mesh
+(CUDA.MESH_SHAPE on the config every stage clones, as the JAX driver
+does), so that the whole chain, the resident TESTALL sweep included, runs
+with the batch over D and each image's rows over S, e.g.
+``SOD100K_MULTIHOST=auto torchrun --nproc-per-node 2 -m
+sod100k_tpu_torch.cli.smoke --dry-data --save-dir DIR --mesh_shape 1x2``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import tempfile
 
 import numpy as np
 import torch
+
+SMOKE_BATCH = 4  # DATA.BATCH_SIZE of the chain's stages
 
 
 def make_dry_data(root: str, n_train: int = 12, n_test: int = 6,
@@ -53,8 +57,8 @@ def _print_log(msg, display: bool = True) -> None:
 
 def run_smoke(data_root: str, save_dir: str, *, train_epochs: int = 2,
               finetune_epochs: int = 1, image_hw: int = 64,
-              batch_size: int = 4, log=_print_log,
-              device: str | torch.device = "cuda") -> dict:
+              batch_size: int = SMOKE_BATCH, mesh_shape: str = "",
+              log=_print_log, device: str | torch.device = "cuda") -> dict:
     from ..config import get_cfg
     from ..parallel import multihost
     from .eval import run_eval
@@ -82,6 +86,11 @@ def run_smoke(data_root: str, save_dir: str, *, train_epochs: int = 2,
     cfg.SOLVER.METHOD = "Adam_dynamic_weight_decay"
     cfg.SOLVER.LR = 1e-3
     cfg.FINETUNE.THRES = 1e-6
+    # one mesh for the whole chain: train on it, prune the gammas it
+    # trained, finetune, test and sweep on it
+    cfg.CUDA.MESH_SHAPE = mesh_shape
+    if mesh_shape:
+        log(f"[smoke] the chain on the {mesh_shape} mesh")
 
     log(f"[smoke 1/5] train {train_epochs} epochs on {cfg.DATA.DIR}")
     trained = run_training(cfg, max_epochs=train_epochs, log=log,
@@ -192,15 +201,10 @@ def main(argv=None) -> None:
     ap.add_argument("--save-dir", default=None)
     ap.add_argument("--train-epochs", type=int, default=2)
     ap.add_argument("--image-hw", type=int, default=64)
-    ap.add_argument("--mesh_shape", default="",
-                    help="the JAX driver's 2-D mesh; refused here until "
-                    "the resident sweep runs on it")
+    ap.add_argument("--mesh_shape", default="", metavar="DxS",
+                    help="run the whole chain on a 2-D data x spatial mesh "
+                    "of the world's D*S processes, e.g. 1x2")
     args = ap.parse_args(argv)
-    if args.mesh_shape:
-        from .common import refuse_resident_mesh
-
-        refuse_resident_mesh(f"--mesh_shape {args.mesh_shape}",
-                             "the smoke chain's resident TESTALL sweep")
     if not args.data_root and not args.dry_data and not args.fetch:
         raise SystemExit("pass --data-root DIR, --dry-data, or --fetch NAME")
     from ..parallel import multihost
@@ -210,6 +214,15 @@ def main(argv=None) -> None:
                          "same directory for every process, and no --fetch "
                          "(fetch once in a single process, then pass "
                          "--data-root)")
+    if args.mesh_shape:
+        from ..arch.csnet import DEEPEST_STRIDE2_FACTOR
+        from .common import build_mesh_2d
+
+        # the mesh's refusals before anything is written
+        build_mesh_2d(args.mesh_shape, f"--mesh_shape {args.mesh_shape}",
+                      batch_size=SMOKE_BATCH, batch_flag="the smoke's batch",
+                      image_h=args.image_hw,
+                      stride2_factor=DEEPEST_STRIDE2_FACTOR)
     data_root = _fetch_root(args) if args.fetch else args.data_root
     if data_root is None:
         data_root = (os.path.join(args.save_dir, "dry_data")
@@ -220,7 +233,8 @@ def main(argv=None) -> None:
     multihost.barrier("smoke-data")
     save_dir = args.save_dir or tempfile.mkdtemp(prefix="sod_smoke_")
     out = run_smoke(data_root, save_dir, train_epochs=args.train_epochs,
-                    image_hw=args.image_hw)
+                    image_hw=args.image_hw, batch_size=SMOKE_BATCH,
+                    mesh_shape=args.mesh_shape)
     raise SystemExit(0 if out["ok"] else 1)
 
 

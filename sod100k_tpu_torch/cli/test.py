@@ -26,8 +26,9 @@ With CUDA.MESH_SHAPE "DxS" each fixed-size batch splits its rows over the
 D data indices and each image's rows over the S spatial indices; the bands
 are gathered into whole maps before the PNG writes (the S-measure and
 weighted F are not sums over pixels), and the primary writes. The
-ceil-to-16 mode still runs on the primary alone; the resident sweep is
-refused with a mesh (the next slice).
+ceil-to-16 mode still runs on the primary alone. The resident sweep
+splits its batches over the D data indices and each image's rows over
+the S spatial indices, and every rank logs the whole table.
 """
 
 from __future__ import annotations
@@ -52,8 +53,8 @@ from ..data.pipeline import (_imread_rgb_u8, preprocess_test_image,
 from ..parallel import mesh, multihost
 from ..train.step import make_eval_step
 from ..utils.profiler import count_params
-from .common import (compute_dtype, init_data_parallel, init_parallel,
-                     load_any_checkpoint, model_device, refuse_resident_mesh)
+from .common import (compute_dtype, init_parallel, load_any_checkpoint,
+                     model_device)
 
 
 def run_test(cfg, log=print, *, device: str | torch.device = "cuda") -> dict:
@@ -284,27 +285,27 @@ def run_testall_resident(cfg, log=print, *,
     F); only metric sums come back. Writes cli.eval-format files under
     distinct "_resident" names (this protocol's u8-resize inputs differ
     sub-1/255 from the reference dialect) and returns the best epoch by
-    MaxF per split. No PNG maps. Under data parallelism the ranks split
-    each split's batches, every rank logs the whole table and the primary
-    writes the files."""
+    MaxF per split. No PNG maps. On the run's mesh (CUDA.MESH_SHAPE, or
+    the world's data mesh) the data indices split each split's batches and
+    the spatial indices each image's rows, every rank logs the whole table
+    and the primary writes the files."""
     from ..data.pipeline import SalData
     from ..data.resident import (build_resident_val_dataset,
                                  make_resident_salmetric_fn)
     from ..metrics.salmetric import format_report, result_from_sums
 
-    if cfg.CUDA.MESH_SHAPE:
-        refuse_resident_mesh(f"CUDA.MESH_SHAPE={cfg.CUDA.MESH_SHAPE}",
-                             "CUDA.TEST_RESIDENT")
-    device, data_mesh = init_data_parallel(device, log)
     if not (cfg.TEST.IMAGE_H and cfg.TEST.IMAGE_W):
         raise SystemExit("CUDA.TEST_RESIDENT needs fixed TEST.IMAGE_H/W "
                          "(the ceil-to-16 mode is per-image-shaped)")
+    device, mesh2d = init_parallel(
+        cfg, device, log, image_h=cfg.TEST.IMAGE_H,
+        stride2_factor=DEEPEST_STRIDE2_FACTOR)
     lc = LayerConfig.load(cfg.TEST.MODEL_CONFIG)
     model = get_arch(cfg.MODEL.ARCH)(lc, device=device)
     batch = max(cfg.DATA.BATCH_SIZE, 1)
     in_hw = (cfg.TEST.IMAGE_H, cfg.TEST.IMAGE_W)
     eval_step = make_eval_step(model, from_u8=True,
-                               compute_dtype=compute_dtype(cfg))
+                               compute_dtype=compute_dtype(cfg), mesh=mesh2d)
 
     task = cfg.TASK or cfg.MODEL.ARCH
     out_dir = os.path.join(cfg.DATA.SAVEDIR, task)
@@ -325,7 +326,7 @@ def run_testall_resident(cfg, log=print, *,
             log(f"resident test split {ds}: weighted-F SKIPPED: {wf_skipped}")
         splits[ds] = (data, make_resident_salmetric_fn(
             eval_step, batch_size=batch, canvas_hw=canvas_hw,
-            mesh=data_mesh))
+            mesh=mesh2d))
         nbytes = sum(v.numel() * v.element_size() for v in data.values())
         log(f"resident test split {ds}: {len(sd)} images "
             f"({nbytes / 2**20:.0f} MiB on {device})")

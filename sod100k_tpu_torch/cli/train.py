@@ -20,7 +20,8 @@ With CUDA.MESH_SHAPE "DxS" the D*S processes form a 2-D mesh: the batch
 splits over D and each image's rows over S (``parallel.spatial``), e.g.
 ``SOD100K_MULTIHOST=auto torchrun --nproc-per-node 4 -m
 sod100k_tpu_torch.cli.train --config x.yml`` with ``MESH_SHAPE: "2x2"``
-under ``CUDA:``. Validation runs on the same mesh.
+under ``CUDA:``. Every front-end runs on it, the resident one
+(CUDA.PREPROCESS "resident") included, and so does validation.
 """
 
 from __future__ import annotations
@@ -73,9 +74,7 @@ def run_training(cfg, max_epochs: int | None = None, log=None, *,
                  device: str | torch.device = "cuda") -> dict:
     device, mesh2d = init_parallel(
         cfg, device, log or print, image_h=cfg.DATA.IMAGE_H,
-        stride2_factor=DEEPEST_STRIDE2_FACTOR,
-        resident=("CUDA.PREPROCESS=resident"
-                  if cfg.CUDA.PREPROCESS == "resident" else ""))
+        stride2_factor=DEEPEST_STRIDE2_FACTOR)
     dirs = resolve_dirs(cfg)
     if log is None:
         log = Logger(dirs["base"], "logtrain", dirs["task"])

@@ -24,15 +24,21 @@ Port of ``sod100k_tpu/data/resident.py:37-372``:
 Every builder puts its tensors on the card unless the caller names another
 device, and raises when the card is absent.
 
-Under data parallelism (``mesh``, a W x 1 ``parallel.mesh.Mesh2D``; one
-process per card) every rank holds the whole store. The epochs draw the permutation and the augmentations of
-the global batch from the same generator on every rank and keep the rank's
-rows, so W ranks see exactly the rows, crops and flips of one process. The
-evaluation paths split the batches over the ranks and SUM-all-reduce the
-metric sums, which are additive. The JAX package's augmentation
-note holds here too: images are pre-resized to the store size, so the crop
-acts at that scale (``max_crop`` 17 ~ 15 * 256/224). A mesh with a spatial
-axis is refused (the drivers refuse it first).
+Under a mesh (``mesh``, a ``parallel.mesh.Mesh2D`` of D x S processes;
+one process per card) every rank holds the whole store, as the JAX package
+replicates it. The epochs draw the permutation and the augmentations of the
+global batch from the same generator on every rank and keep the rank's
+data index's rows; under a spatial axis each rank augments and resizes the
+whole images and then keeps its band of their rows
+(``Mesh2D.cut_bands``), so D*S ranks see exactly the rows, crops and flips
+of one process. The evaluation paths split the batches over the D data
+indices: the S ranks of a spatial group take the same batches and run them
+through ``make_eval_step(mesh=...)``, which returns whole maps on each of
+them, and the metric sums, which are additive, are SUM-all-reduced over the
+data group (``Mesh2D.data_group``), so each data index counts once. The
+JAX package's augmentation note holds here too: images are pre-resized to
+the store size, so the crop acts at that scale (``max_crop`` 17 ~ 15 *
+256/224).
 """
 
 from __future__ import annotations
@@ -51,18 +57,13 @@ HOST_THREADS = 8  # decode, resize and distance-transform threads
 
 
 def _rows(batch_size: int, mesh: Mesh2D | None) -> slice:
-    """This rank's rows of each global batch under the data mesh ``mesh``
-    (all of them without one)."""
-    if mesh is None:
-        return slice(None)
-    if mesh.spatial > 1:
-        raise ValueError(f"the resident programs run on a data mesh, not on "
-                         f"the 2-D mesh {mesh.shape}")
-    return mesh.rows(batch_size)
+    """This rank's rows of each global batch under ``mesh`` (all of them
+    without one)."""
+    return slice(None) if mesh is None else mesh.rows(batch_size)
 
 
-def _world(mesh: Mesh2D | None):
-    return mesh.world if mesh is not None else None
+def _data_group(mesh: Mesh2D | None):
+    return mesh.data_group if mesh is not None else None
 
 
 def build_resident_dataset(dataset, store_hw=(256, 256), *,
@@ -102,7 +103,9 @@ def make_resident_epoch_fn(step_fn, *, batch_size: int, out_hw,
     penalties (nb,))``, device tensors. The permutation, then each batch's
     draws, come from ``generator`` (on the store's device), in that order.
     With ``mesh``, ``batch_size`` is the global batch and the step sees
-    this rank's rows of it.
+    this rank's rows of it and, under a spatial axis, its band of their
+    rows after the resize (``step_fn`` built with ``mesh`` and ``image_h =
+    out_hw[0]``).
     """
     from .device_pipeline import draw_augment_params
 
@@ -127,6 +130,8 @@ def make_resident_epoch_fn(step_fn, *, batch_size: int, out_hw,
             batch = preprocess_train_batch(
                 store[idxs], gts[idxs], valid[rows], draws=d, out_hw=out_hw,
                 augment=augment, max_crop=max_crop)
+            if mesh is not None:
+                batch = mesh.cut_bands(batch)
             m = step_fn(batch, lr, penalty_on)
             losses.append(m["loss"])
             pens.append(m["penalty"])
@@ -151,7 +156,10 @@ def make_resident_csf_epoch_fn(step_fn, *, batch_size: int,
     from ``generator`` (on the store's device), unless ``draws`` gives them:
     ``(perm (nb, batch_size) int64, flips (nb, batch_size) bool)``. With
     ``mesh``, ``batch_size`` is the global batch, the step sees this
-    rank's rows of it and the losses are this rank's shares.
+    rank's rows of it and, under a spatial axis, its band of their rows
+    (the flip acts on W, so it commutes with the cut; ``step_fn`` built
+    with ``mesh`` and ``image_h`` the store's height), and the losses are
+    this rank's shares.
     """
     from .pipeline import normalize_u8
 
@@ -178,6 +186,8 @@ def make_resident_csf_epoch_fn(step_fn, *, batch_size: int,
             gt = torch.where(fl[:, None, None], gt.flip(2), gt)
             batch = {"image": normalize_u8(img),
                      "target": gt.float()[..., None] / 255.0}
+            if mesh is not None:
+                batch = mesh.cut_bands(batch)
             losses.append(step_fn(batch, lr)["loss"])
         return torch.stack(losses)
 
@@ -263,14 +273,14 @@ def _batch_native_maps(eval_step, img, hw, canvas_hw):
 
 def _batches(data: dict, batch_size: int, keys, mesh=None):
     """(index, batch) of the split's batches that this rank scores: every
-    W-th from its data index, all of them without a mesh."""
+    D-th from its data index (the S ranks of a spatial group take the same
+    ones), all of them without a mesh."""
     nb = data["image_u8"].shape[0] // batch_size
-    _rows(batch_size, mesh)  # refuses a spatial axis
-    w, r = (mesh.data, mesh.data_index) if mesh is not None else (1, 0)
-    if w > nb:
+    d, r = (mesh.data, mesh.data_index) if mesh is not None else (1, 0)
+    if d > nb:
         raise ValueError(f"{nb} batches of {batch_size} cannot be shared by "
-                         f"{w} processes; use a smaller batch")
-    for b in range(r, nb, w):
+                         f"{d} data indices; use a smaller batch")
+    for b in range(r, nb, d):
         sl = slice(b * batch_size, (b + 1) * batch_size)
         yield b, {k: data[k][sl] for k in keys if k in data}
 
@@ -286,9 +296,10 @@ def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw,
     ``fn(data) -> dict`` of per-batch sums on the card, each with a leading
     (nb,) axis: "n", "mae_sum", "p_sum"/"r_sum"/"e_sum" (256 each),
     "a_sum", "ae_sum", "s_sum" and "w_sum". Reduce them on the host with
-    ``metrics.salmetric.result_from_sums``. With ``mesh`` each rank scores
-    its share of the batches and the (nb, ...) sums are all-reduced: every
-    rank returns the single-process sums, bit for bit."""
+    ``metrics.salmetric.result_from_sums``. With ``mesh`` (``eval_step``
+    built with it) each data index scores its share of the batches and the
+    (nb, ...) sums are all-reduced over the data group: every rank returns
+    the single-process sums."""
     from ..metrics.salmetric import (adaptive_e_per_image,
                                      adaptive_f_per_image, per_image_stats)
     from ..metrics.smeasure import s_measure_batch
@@ -327,9 +338,11 @@ def make_resident_salmetric_fn(eval_step, *, batch_size: int, canvas_hw,
                 if k not in out:
                     out[k] = v.new_zeros((nb, *v.shape))
                 out[k][b] = v
-        # under a mesh each rank filled its batches' rows and left zeros
-        # elsewhere: the SUM has one non-zero term per row, so it is exact
-        return all_reduce_sum(out, _world(mesh))
+        # under a mesh each data index filled its batches' rows and left
+        # zeros elsewhere: the SUM over the data group (never the world,
+        # whose S ranks per data index hold the same rows) has one
+        # non-zero term per row, so it is exact
+        return all_reduce_sum(out, _data_group(mesh))
 
     return fn
 
@@ -342,8 +355,9 @@ def make_resident_val_fn(eval_step, *, batch_size: int, canvas_hw,
 
     ``eval_step``: ``make_eval_step(model, from_u8=True, ...)``. Returns
     ``val_fn(data) -> MAE``, a 0-d f32 tensor on the card (weighted by
-    "weight", so the padding copies count for nothing). With ``mesh`` each
-    rank scores its share of the batches and the sums are all-reduced."""
+    "weight", so the padding copies count for nothing). With ``mesh``
+    (``eval_step`` built with it) each data index scores its share of the
+    batches and the sums are all-reduced over the data group."""
 
     @torch.inference_mode()
     def val_fn(data: dict) -> torch.Tensor:
@@ -358,7 +372,7 @@ def make_resident_val_fn(eval_step, *, batch_size: int, canvas_hw,
                              - xs["gt_u8"].float() / 255.0) * mask
             maes = diff.sum(dim=(1, 2)) / (hw[:, 0] * hw[:, 1]).float()
             s, c = s + torch.sum(maes * wt), c + wt.sum()
-        tot = all_reduce_sum({"s": s, "c": c}, _world(mesh))
+        tot = all_reduce_sum({"s": s, "c": c}, _data_group(mesh))
         return tot["s"] / tot["c"]
 
     return val_fn

@@ -215,6 +215,16 @@ class Mesh2D:
         """This rank's global rows [lo, hi) of a height-``h`` map."""
         return band_rows(h, self.spatial_index, self.spatial)
 
+    def cut_bands(self, feed: dict) -> dict:
+        """This rank's band of the rows (axis 1) of every tensor of a feed
+        of whole NHWC images and targets, for a front-end that augments
+        and resizes whole images before the cut; the feed itself without a
+        spatial axis."""
+        if self.spatial == 1:
+            return feed
+        return {k: v[:, slice(*self.band(v.shape[1]))]
+                for k, v in feed.items()}
+
 
 def make_mesh_2d(data: int, spatial: int) -> Mesh2D:
     """The D x S mesh over the world (which must hold exactly D*S

@@ -33,7 +33,9 @@ and build the mesh themselves (``cli.common.init_parallel``,
 3. The refusals, in one process: a malformed shape, a data axis that does
    not divide the batch, a world that is not D*S, the extent check (the
    same conditions as the JAX package's ``check_spatial_extent``, held on a
-   grid), and a resident program with a mesh, which names the next slice.
+   grid). The resident programs and ``cli.smoke`` run on the mesh
+   (``test_torch_resident_mesh.py``, ``test_torch_smoke_mesh.py``): in one
+   process they reach the mesh's build and its world refusal.
 """
 
 import argparse
@@ -348,7 +350,7 @@ def _exit(fn, *args, **kwargs) -> str:
     ("1x2", "hybrid", 16, "deepest stride-2 conv input would be 4 rows"),
     ("1x8", "hybrid", 48, "fewer rows than shards"),
     ("1x2", "hybrid", 64, "needs 2 processes, the world has 1"),
-    ("1x2", "resident", 64, "next slice of the port"),
+    ("1x2", "resident", 64, "needs 2 processes, the world has 1"),
 ], ids=["malformed", "zero_axis", "data_axis", "extent", "deepest_rows",
         "world", "resident"])
 def test_cli_train_refusals(tree, tmp_path, shape, preprocess, image, match):
@@ -363,16 +365,17 @@ def test_cli_train_refusals(tree, tmp_path, shape, preprocess, image, match):
 def test_resident_sweep_and_csf_refusals(tree, csf_tree, tmp_path):
     from sod100k_tpu_torch.cli.test import run_testall_resident
 
+    world = "needs 2 processes, the world has 1"
     cfg = make_cfg(str(tree), str(tmp_path), mesh_shape="1x2")
     cfg.CUDA.TEST_RESIDENT = True
     msg = _exit(run_testall_resident, cfg, log=lambda *a: None,
                 device="cpu")
-    assert "CUDA.TEST_RESIDENT" in msg and "ROADMAP.md" in msg
+    assert "CUDA.MESH_SHAPE=1x2" in msg and world in msg
     args = csf_train_args(csf_tree)
     msg = _exit(csf.run_csf_train, csf_config(
         csf_tree, tmp_path, *args, "--mesh_shape", "1x2", "--preprocess",
         "resident"), log=lambda *a: None, device="cpu")
-    assert "--preprocess resident" in msg and "next slice" in msg
+    assert "--mesh_shape 1x2" in msg and world in msg
     args[args.index("--image_size") + 1] = "0"
     assert "needs a fixed --image_size" in _exit(
         csf.run_csf_train, csf_config(csf_tree, tmp_path, *args,
@@ -381,7 +384,7 @@ def test_resident_sweep_and_csf_refusals(tree, csf_tree, tmp_path):
     from sod100k_tpu_torch.cli import smoke
 
     msg = _exit(smoke.main, ["--mesh_shape", "1x2", "--dry-data"])
-    assert "resident TESTALL sweep" in msg and "next slice" in msg
+    assert "--mesh_shape 1x2" in msg and world in msg
     assert "data axis 2 must divide --test_batch=3" in _exit(
         csf.run_csf_test, csf_config(csf_tree, tmp_path, "--mode", "test",
                                      "--mesh_shape", "2x1",
