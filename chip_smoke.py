@@ -225,6 +225,24 @@ Phases; any failure exits non-zero:
 16d. ``python -m sod100k_tpu_torch.cli.smoke --dry-data --mesh_shape
    1x2`` (64 px, one train and one finetune epoch) as two ranks: each
    reports ``[smoke] OK`` and a resident sweep epoch >= 1.
+17. the measurement tools (``python -m sod100k_tpu_torch.tools.*``) on
+   the card, in-process, at a short setting; the tail kernel's launches
+   over the phase are the kernels line's ``tools_bench_launches``:
+17a. ``tools.bench`` at its defaults: exactly one stdout line, a JSON
+   row with the JAX tool's keys and metric name and the card's name and
+   power limit, after its parity gate (bf16 MAE <= 1e-3 or f32 <= 1e-5
+   against the f32 plain-tail reference); the tail kernel launched 33
+   times for each of its forwards;
+17b. ``tools.bench_serve --secs 5``: the JAX row's keys, served and
+   direct img/s > 0;
+17c. ``tools.bench_extras --skip-e2e`` with each timing the best of 1
+   (``timing.REPEATS``; 3 in the tool's own runs): every entry's row,
+   named as the JAX tool names it, finite and > 0;
+17d. ``tools.bench_check --record`` into a temporary reference from 17c's
+   rows, then ``tools.bench_check`` against it (a fresh ``tools.bench``
+   row within 15%);
+17e. ``tools.perf_probe`` ablate and dwlayout.
+   Printed, not gated: each tool's rows and times, the phase's wall time.
 
 Needs torch with CUDA and nvcc; no jax, cv2, PIL or yaml. The second line from
 the end is a JSON summary of the kernels; the last line is the run's JSON
@@ -240,10 +258,12 @@ timed as in phase 5 and printed per shape and per forward; no result line.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import ctypes
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -3825,6 +3845,121 @@ def phase_resident_mesh(gpu: str) -> int:
     return launches
 
 
+TOOLS_EXTRAS = [  # tools.bench_extras --skip-e2e, in its order
+    "csnet_l_x2_224_serving_artifact_img_per_sec[bf16,B=128]",
+    "csnet_l_x2_224_infer_latency_ms[bf16,B=1]",
+    "csf_res2net50_336_infer_latency_ms[bf16,B=1]",
+    "csf_res2net50_336_infer_img_per_sec[bf16,B=32]",
+    "csf_res2net101_336_infer_img_per_sec[bf16,B=32]",
+    "csnet_l_x2_224_train_step_img_per_sec[f32,B=128]",
+    "csnet_l_x2_224_train_step_img_per_sec[f32,B=24]",
+    "csnet_l_x2_224_train_step_img_per_sec[bf16,B=128]",
+    "csf_res2net50_336_train_microstep_ms[B=1]",
+    "csf_res2net50_336_train_microstep_ms[B=8]",
+    "csf_res2net50_336_train_microstep_ms[bf16,B=8]",
+    "csf_res2net50_336_train_microstep_ms[bf16,B=32]",
+    "csf_res2net101_336_train_microstep_ms[bf16,B=8]",
+    "csf_res2net50_336_resident_train_img_per_sec[bf16,B=8]",
+    "csnet_l_x2_resident_val_img_per_sec[bf16,B=128,n=512]",
+    "csnet_l_x2_resident_testall_img_per_sec[bf16,B=128,n=512]",
+]
+SERVE_KEYS = ["direct_img_per_sec", "served_img_per_sec",
+              "served_over_direct", "clients", "req_batch", "dispatches",
+              "mean_dispatch_batch", "client_encode_ms", "hw", "buckets",
+              "wire", "dtype", "device", "power_limit"]
+
+
+def phase_tools_bench(gpu: str) -> int:
+    """Phase 17: the measurement tools on the card (the module docstring
+    lists what each step checks). Returns the tail kernel's launches over
+    the phase."""
+    from sod100k_tpu_torch.tools import (bench, bench_check, bench_extras,
+                                         bench_serve, perf_probe, timing)
+
+    t17 = time.perf_counter()
+    torch.cuda.empty_cache()
+    start = dw_chain.launches
+    info = timing.card("cuda")
+    check(f"{info['device']}, {info['power_limit']}" == gpu,
+          "the tools read the card's name and power limit as nvidia-smi "
+          "prints them")
+    times = {}
+
+    say("17a: tools.bench at its defaults")
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main([])
+    lines = buf.getvalue().splitlines()
+    check(len(lines) == 1, f"tools.bench printed {len(lines)} stdout lines")
+    row = json.loads(lines[0])
+    say(f"  {lines[0]}")
+    check(list(row)[:4] == ["metric", "value", "unit", "vs_baseline"] and
+          row["metric"] in (
+              "csnet_l_x2_224_inference_images_per_sec_per_chip[bf16]",
+              "csnet_l_x2_224_inference_images_per_sec_per_chip[f32]") and
+          row["device"] == info["device"] and row["value"] > 0,
+          "tools.bench's row: the JAX keys and metric name, the card")
+    launches = dw_chain.launches - start
+    want = CALLS_PER_FORWARD * (2 + 1 + timing.REPEATS * bench.SCAN_LEN)
+    say(f"  {launches} tail kernel launches (33 x (2 gates + 1 warm-up + "
+        f"{timing.REPEATS} x {bench.SCAN_LEN} timed forwards) = {want})")
+    check(launches == want, "tools.bench ran every CSNet forward through "
+          "the kernel")
+    times["17a"] = time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        say("17b: tools.bench_serve --secs 5")
+        t = time.perf_counter()
+        before = dw_chain.launches
+        srow = bench_serve.main(["--secs", "5"])
+        check(list(srow) == SERVE_KEYS and srow["served_img_per_sec"] > 0
+              and srow["direct_img_per_sec"] > 0,
+              "tools.bench_serve's row: the JAX row's keys, img/s > 0")
+        check(dw_chain.launches > before, "bench_serve ran the kernel")
+        say(f"  {dw_chain.launches - before} tail kernel launches")
+        times["17b"] = time.perf_counter() - t
+
+        say("17c: tools.bench_extras --skip-e2e, best of 1 (the full "
+            "run's best of 3 is the headline's)")
+        t = time.perf_counter()
+        extras = os.path.join(tmp, "extras.json")
+        before = dw_chain.launches
+        repeats, timing.REPEATS = timing.REPEATS, 1
+        try:
+            entries = bench_extras.main(["--skip-e2e", "--out", extras])
+        finally:
+            timing.REPEATS = repeats
+        names = [e["metric"] for e in entries]
+        check(names == TOOLS_EXTRAS, f"bench_extras' rows: {names}")
+        check(all(math.isfinite(e["value"]) and e["value"] > 0
+                  for e in entries), "bench_extras' values finite and > 0")
+        say(f"  {dw_chain.launches - before} tail kernel launches")
+        times["17c"] = time.perf_counter() - t
+
+        say("17d: tools.bench_check --record, then against the record")
+        t = time.perf_counter()
+        ref = os.path.join(tmp, "reference.json")
+        bench_check.main(["--record", "--reference", ref,
+                          "--extras-json", extras])
+        bench_check.main(["--reference", ref, "--extras-json", extras])
+        times["17d"] = time.perf_counter() - t
+
+    say("17e: tools.perf_probe ablate and dwlayout")
+    t = time.perf_counter()
+    ablate = perf_probe.ablate("cuda")
+    dw = perf_probe.dwlayout("cuda")
+    check(all(math.isfinite(v) and v > 0 for v in list(ablate.values()) +
+              [v for k, v in dw.items() if k != "bound_by"]),
+          "perf_probe's times finite and > 0")
+    times["17e"] = time.perf_counter() - t
+    launches = dw_chain.launches - start
+    say(f"  phase 17 took {time.perf_counter() - t17:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+        + f"); {launches} tail launches  [{gpu}]")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -3979,6 +4114,11 @@ def main() -> None:
     say(f"  phases 13 to 16 took {time.perf_counter() - t13:.1f} s  "
         f"[{gpu}]")
 
+    say("phase 17: the measurement tools (python -m "
+        "sod100k_tpu_torch.tools.{bench,bench_serve,bench_extras,"
+        "bench_check,perf_probe})")
+    tools_bench_launches = phase_tools_bench(gpu)
+
     print(json.dumps({"kernels": [{
         "name": "fused_dw_chain", "route": "cuda",
         "source": "sod100k_tpu_torch/csrc/dw_chain.cu",
@@ -3998,7 +4138,8 @@ def main() -> None:
         "csf_cli_launches": csf_cli_launches,
         "tools_launches": tools_launches, "dp_launches": dp_launches,
         "spatial_launches": spatial_launches,
-        "resident_mesh_launches": resident_mesh_launches}]}))
+        "resident_mesh_launches": resident_mesh_launches,
+        "tools_bench_launches": tools_bench_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -162,10 +162,10 @@ class Res2Net(nn.Module):
                 inplanes = planes * EXPANSION
             self.add_module(f"layer{li + 1}", layer)
 
-    def forward(self, x: torch.Tensor,
-                spatial: SpatialCtx | None = None) -> list[torch.Tensor]:
-        """NCHW image batch (row bands under ``spatial``) -> the four
-        layers' features."""
+    def forward(self, x: torch.Tensor, spatial: SpatialCtx | None = None,
+                depth: int = len(PLANES)) -> list[torch.Tensor]:
+        """NCHW image batch (row bands under ``spatial``) -> the features
+        of the first ``depth`` layers (all four by default)."""
         s, ctx = self.conv1, spatial
         x = _bn_relu(conv2d(x, s["0"].weight, stride=2, padding=1,
                             spatial=ctx), s["1"], ctx)
@@ -175,7 +175,7 @@ class Res2Net(nn.Module):
                      self.bn1, ctx)
         x = max_pool_torch(x, 3, 2, 1, spatial=ctx)
         feats = []
-        for li in range(len(PLANES)):
+        for li in range(depth):
             for block in getattr(self, f"layer{li + 1}"):
                 x = block(x, ctx)
             feats.append(x)
