@@ -4,6 +4,8 @@
                       a synthetic task, with its params / val-MAE table
     bf16_ab           f32 against bf16-compute training on the same seed and
                       batches: trajectories, BN-gamma and pruning agreement
+    prune_seed_spread prune_trajectory over several seeds at once, each run
+                      held to the JAX slow test's invariants
 
 Both need no dataset: the only checks of training quality that run
 anywhere. They run on the card unless given ``--device cpu``.

@@ -15,12 +15,22 @@ Usage:
       [--batch 16] [--flops-weight 10] [--thres 1e-2] [--json out.json]
       [--device cpu]
 
+The recipe's stages are functions of their own, each taking the
+``epochs_of`` it trains with (``recipe_epochs`` over ``resident_epochs``
+here): ``penalty_stage``, ``prune_stage`` (keep-alive and prune) and
+``recovery_stage`` (re-estimation and finetune).
+``tests/test_torch_trajectory.py`` runs the same stages on the JAX
+package's draws and holds them to the JAX tool's trajectory.
+
 The JAX package's slow test (tests/test_prune.py::
 test_prune_trajectory_end_to_end) holds its run at 600 + 30 epochs,
 basewidth 8, 32 images at 48^2, B=8, lr 2e-3, flops weight 30 to >30%
 gamma sparsity, >25% parameter drop, post-prune MAE within +0.05 of
-pre-prune and a finetuned MAE < 0.15 and <= 1.6x pre-prune;
-``chip_smoke.py`` holds this port's run to the same invariants.
+pre-prune and a finetuned MAE < 0.15 and <= 1.6x pre-prune
+(``INVARIANTS``); ``chip_smoke.py`` holds this port's run to the same
+invariants but prints the last, which the JAX package's own runs of that
+configuration fail as often as this port's. ``tools.prune_seed_spread``
+runs the tool over several seeds at once.
 """
 
 from __future__ import annotations
@@ -31,6 +41,23 @@ import math
 
 import numpy as np
 import torch
+
+# the JAX package's slow test of the trajectory (tests/test_prune.py:141-146)
+INVARIANTS = {
+    "sparsity > 30%": lambda r: r["gamma_sparsity_pct"] > 30,
+    "drop > 25%": lambda r: r["param_drop_pct"] > 25,
+    "post-prune < pre-prune + 0.05":
+        lambda r: r["mae_post_prune"] < r["mae_pre_prune"] + 0.05,
+    "finetuned < 0.15": lambda r: r["mae_post_finetune"] < 0.15,
+    "finetuned <= 1.6x pre-prune":
+        lambda r: r["mae_post_finetune"] <= 1.6 * r["mae_pre_prune"],
+}
+
+
+def failed_invariants(result: dict) -> list[str]:
+    """The names of the ``INVARIANTS`` that ``result`` (``run_trajectory``'s
+    dict) fails."""
+    return [name for name, ok in INVARIANTS.items() if not ok(result)]
 
 
 def make_synth(n: int, size: int, seed: int = 0):
@@ -92,6 +119,119 @@ def keep_one_alive(sd: dict, lc, thres: float) -> int:
     return kept
 
 
+def resident_epochs(rdata: dict, *, batch: int, size: int):
+    """The tool's epochs: ``epoch_fn_of(step) -> epoch(seed, lr,
+    penalty_on)``, one pass of ``make_resident_epoch_fn`` over the
+    resident store ``rdata`` whose permutation and draws come from a
+    generator on the store's device seeded with ``seed``."""
+    from ..data.resident import make_resident_epoch_fn
+
+    device = rdata["image_u8"].device
+
+    def epoch_fn_of(step):
+        epoch_fn = make_resident_epoch_fn(
+            step, batch_size=batch, out_hw=(size, size),
+            max_crop=max_crop_of(size))
+
+        def epoch(seed: int, lr: float, penalty_on: float):
+            gen = torch.Generator(device).manual_seed(seed)
+            return epoch_fn(rdata, gen, lr, penalty_on)
+
+        return epoch
+
+    return epoch_fn_of
+
+
+def max_crop_of(size: int) -> int:
+    """The crop margin at the store size: the reference's 15 px at 224."""
+    return max(1, round(15 * size / 224))
+
+
+def recipe_epochs(epoch_fn_of, *, batch: int):
+    """``epochs_of(model, optimizer, flops_weight) -> epoch(seed, lr,
+    penalty_on)``: the recipe's train step of ``model`` (the penalty's
+    flop weights at expand 1.0, divided by ``batch``), run by
+    ``epoch_fn_of`` (``resident_epochs``' or a caller's)."""
+    from ..train.step import make_train_step
+
+    def epochs_of(model, optimizer, flops_weight: float):
+        return epoch_fn_of(make_train_step(
+            model, optimizer, flops_weight=flops_weight, flops_expand=1.0,
+            batch_size=batch))
+
+    return epochs_of
+
+
+def penalty_stage(model, epochs_of, *, train_epochs: int, lr: float,
+                  flops_weight: float, weight_decay: float, thres: float,
+                  seed: int, log=print, on_epoch=None) -> None:
+    """Penalty training: Adam with dynamic weight decay, the penalty on,
+    epoch e drawn from seed * 7_777_777 + e. ``on_epoch(e, losses,
+    penalties)`` sees every epoch."""
+    from ..train.optim import make_adam_dwd
+
+    epoch = epochs_of(model, make_adam_dwd(model, weight_decay=weight_decay),
+                      flops_weight)
+    for e in range(train_epochs):
+        losses, pens = epoch(seed * 7_777_777 + e, lr, 1.0)
+        if on_epoch is not None:
+            on_epoch(e, losses, pens)
+        if (e + 1) % max(train_epochs // 6, 1) == 0:
+            sp = float((np.abs(gammas_of(model)) < thres).mean())
+            log(f"  epoch {e + 1}: loss {float(losses[-1]):.4f} "
+                f"penalty {float(pens[-1]):.4f} "
+                f"gamma sparsity(|g|<{thres:g}) {sp * 100:.0f}%")
+
+
+def prune_stage(model, thres: float, *, log=print):
+    """Keep-alive and prune of the trained ``model``: returns (the slim
+    CSNet on the model's device, its masks, the count of layers kept
+    alive)."""
+    from ..prune.finetune import build_pruned_csnet, prune
+
+    pre = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    kept_alive = keep_one_alive(pre, model.lc, thres)
+    if kept_alive:
+        log(f"kept 1 channel alive in {kept_alive} fully-dead block(s)")
+    slim_sd, slim_lc, masks = prune(pre, model.lc, thres)
+    device = next(model.parameters()).device
+    return build_pruned_csnet(slim_lc, slim_sd, device=device), masks, \
+        kept_alive
+
+
+def recovery_stage(slim, epochs_of, *, ft_epochs: int, lr: float, seed: int,
+                   val_mae, log=print, on_epoch=None) -> tuple[float, float]:
+    """BN re-estimation, then the cosine finetune of the slim model.
+    Returns (val MAE after the re-estimation, after the finetune);
+    ``val_mae(model) -> float``. ``on_epoch(e, losses, penalties)`` sees
+    the re-estimation epoch as e = -1, then every finetune epoch."""
+    from ..train.optim import make_adam
+
+    # prune() resets the BN running statistics to (0, 1), as the
+    # reference's load_BN_weight does; score the slim model after one
+    # zero-lr epoch re-estimates them (Adam at lr 0 leaves the weights,
+    # the train-mode forward moves the statistics): what pruning alone
+    # costs, before any recovery
+    epoch = epochs_of(slim, make_adam(slim), 0.0)
+    losses, pens = epoch(seed * 7_777_779, 0.0, 0.0)
+    if on_epoch is not None:
+        on_epoch(-1, losses, pens)
+    mae_pruned = val_mae(slim)
+
+    # the re-estimation epoch's gradients met unconverged statistics: the
+    # recovery starts from fresh Adam moments, at a cosine-annealed lr
+    # (the reference finetune's CosineAnnealingLR)
+    epoch = epochs_of(slim, make_adam(slim), 0.0)
+    for e in range(ft_epochs):
+        ft_lr = 0.5 * (lr / 2) * (1 + math.cos(math.pi * e / ft_epochs))
+        losses, pens = epoch(seed * 7_777_771 + e, ft_lr, 0.0)
+        if on_epoch is not None:
+            on_epoch(e, losses, pens)
+    if ft_epochs:
+        log(f"  finetune final train loss {float(losses[-1]):.4f}")
+    return mae_pruned, val_mae(slim)
+
+
 def run_trajectory(*, train_epochs: int = 60, ft_epochs: int = 15,
                    basewidth: int = 16, images: int = 96, size: int = 64,
                    batch: int = 16, lr: float = 1e-3,
@@ -101,10 +241,7 @@ def run_trajectory(*, train_epochs: int = 60, ft_epochs: int = 15,
     from ..arch.csnet import CSNet, count_params
     from ..arch.layer_config import init_layers
     from ..data.pipeline import require_device
-    from ..data.resident import make_resident_epoch_fn
-    from ..prune.finetune import build_pruned_csnet, prune
-    from ..train.optim import make_adam, make_adam_dwd
-    from ..train.step import make_eval_step, make_train_step
+    from ..train.step import make_eval_step
 
     device = require_device(device)
     imgs, gts = make_synth(images, size, seed)
@@ -113,71 +250,29 @@ def run_trajectory(*, train_epochs: int = 60, ft_epochs: int = 15,
              "gt_u8": torch.from_numpy(gts).to(device)}
     vx = torch.from_numpy(vimgs).to(device)
     vt = torch.from_numpy(vgts).to(device).float()[..., None] / 255.0
-    max_crop = max(1, round(15 * size / 224))
-
-    def epochs_of(model, optimizer, weight):
-        step = make_train_step(model, optimizer, flops_weight=weight,
-                               flops_expand=1.0, batch_size=batch)
-        return make_resident_epoch_fn(step, batch_size=batch,
-                                      out_hw=(size, size), max_crop=max_crop)
-
-    def gen(s: int) -> torch.Generator:
-        return torch.Generator(device).manual_seed(s)
+    epochs_of = recipe_epochs(resident_epochs(rdata, batch=batch, size=size),
+                              batch=batch)
 
     def val_mae(model) -> float:
         pred = make_eval_step(model, from_u8=True)(vx)
         return float(torch.mean(torch.abs(pred - vt)))
 
-    lc = init_layers(basewidth, [0.5, 0.5])
-    model = CSNet(lc, seed=seed, device=device)
-    epoch_fn = epochs_of(model, make_adam_dwd(model,
-                                              weight_decay=weight_decay),
-                         flops_weight)
-
-    def sparsity() -> float:
-        return float((np.abs(gammas_of(model)) < thres).mean())
-
+    model = CSNet(init_layers(basewidth, [0.5, 0.5]), seed=seed,
+                  device=device)
     params_before = count_params(model)
     log(f"train: {train_epochs} epochs, dynamic-wd penalty weight "
         f"{flops_weight}, {images} imgs @{size}px, batch {batch}")
-    for epoch in range(train_epochs):
-        losses, pens = epoch_fn(rdata, gen(seed * 7_777_777 + epoch), lr,
-                                1.0)
-        if (epoch + 1) % max(train_epochs // 6, 1) == 0:
-            log(f"  epoch {epoch + 1}: loss {float(losses[-1]):.4f} "
-                f"penalty {float(pens[-1]):.4f} "
-                f"gamma sparsity(|g|<{thres:g}) {sparsity() * 100:.0f}%")
-
+    penalty_stage(model, epochs_of, train_epochs=train_epochs, lr=lr,
+                  flops_weight=flops_weight, weight_decay=weight_decay,
+                  thres=thres, seed=seed, log=log)
     mae_pre = val_mae(model)
-    gamma_sparsity = sparsity()
-    pre = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-    kept_alive = keep_one_alive(pre, lc, thres)
-    if kept_alive:
-        log(f"kept 1 channel alive in {kept_alive} fully-dead block(s)")
+    gamma_sparsity = float((np.abs(gammas_of(model)) < thres).mean())
 
-    slim_sd, slim_lc, _ = prune(pre, lc, thres)
-    slim = build_pruned_csnet(slim_lc, slim_sd, device=device)
+    slim, _, _ = prune_stage(model, thres, log=log)
     params_after = count_params(slim)
-
-    # prune() resets the BN running statistics to (0, 1), as the
-    # reference's load_BN_weight does; score the slim model after one
-    # zero-lr epoch re-estimates them (Adam at lr 0 leaves the weights,
-    # the train-mode forward moves the statistics): what pruning alone
-    # costs, before any recovery
-    ft_epoch = epochs_of(slim, make_adam(slim), 0.0)
-    ft_epoch(rdata, gen(seed * 7_777_779), 0.0, 0.0)
-    mae_pruned = val_mae(slim)
-
-    # the re-estimation epoch's gradients met unconverged statistics: the
-    # recovery starts from fresh Adam moments, at a cosine-annealed lr
-    # (the reference finetune's CosineAnnealingLR)
-    ft_epoch = epochs_of(slim, make_adam(slim), 0.0)
-    for epoch in range(ft_epochs):
-        ft_lr = 0.5 * (lr / 2) * (1 + math.cos(math.pi * epoch / ft_epochs))
-        losses, _ = ft_epoch(rdata, gen(seed * 7_777_771 + epoch), ft_lr, 0.0)
-    if ft_epochs:
-        log(f"  finetune final train loss {float(losses[-1]):.4f}")
-    mae_ft = val_mae(slim)
+    mae_pruned, mae_ft = recovery_stage(
+        slim, epochs_of, ft_epochs=ft_epochs, lr=lr, seed=seed,
+        val_mae=val_mae, log=log)
 
     drop = 1.0 - params_after / params_before
     # an all-zero predictor scores MAE = the GT foreground fraction; a
