@@ -17,6 +17,18 @@ at most --max-wait-ms after the first request), and warms every bucket at
 startup (``serve_http.make_server``). --mesh_devices N serves on N cards
 from the one process: a replica per card, each bucket that N divides split
 over them (``serve.ServingModel``).
+
+GET /stats returns cumulative counters since start (warm-up included):
+requests, images, dispatches and ``batch_hist`` (images a dispatch);
+``queue_wait_s``, the seconds requests waited in the queue before the
+dispatcher took them; ``drain_s``, the seconds it spent holding groups
+open for later requests (at most --max-wait-ms a dispatch); the serving
+model's ``images_run`` (padding included), ``images_padded`` and
+``bucket_runs`` (runs of each bucket). Over an interval, read two
+snapshots and take differences: mean queue wait = d(queue_wait_s) /
+d(requests); drain a dispatch = d(drain_s) / d(dispatches); pad share =
+d(images_padded) / d(images_run), the share of the card's work spent on
+padding (a high one asks for a bucket nearer the usual request size).
 """
 
 from __future__ import annotations

@@ -35,6 +35,10 @@ bands from bit-equal to one process to 3.8e-5 in the logits, and the CSF
 micro-step's gradients from 0.816 to 0.906 of the JAX bar (worst: the
 stem conv's weight). So the power-of-two case keeps torch's kernel, and
 the bands keep one process's numbers.
+
+A bilinear upsample or resize that changes the shape is a span
+``ops.resize`` (``utils.profiler``) with its input and output shapes and
+itemsize: the bytes of the op's contract, whatever computes it.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.spatial import SpatialCtx, banded, height
+from ..utils.profiler import span
 
 
 def _source_rows(h_in: int, h_out: int, factor: Optional[float], opmath):
@@ -111,6 +116,13 @@ def _bilinear_banded(x: torch.Tensor, h_out: int, w_out: int,
                   lambda a_, b_: (int(i0[a_]), int(i1[b_ - 1]) + 1), fn)
 
 
+def _tag_resize(s, x: torch.Tensor, y: torch.Tensor) -> None:
+    """The ``ops.resize`` span's attributes (a no-op while off)."""
+    if s is not None:
+        s.set(shape=tuple(x.shape), out_shape=tuple(y.shape),
+              itemsize=x.element_size())
+
+
 def _pooled(h: int, k: int, s: int, p: int, ceil_mode: bool) -> int:
     """torch's pooled size of one axis."""
     span = h + 2 * p - k
@@ -132,11 +144,15 @@ def upsample_bilinear(x: torch.Tensor, factor: int,
     """Bilinear x`factor` upsample, align_corners=False."""
     if factor == 1:
         return x
-    if spatial is not None:
-        return _bilinear_banded(x, height(x) * factor, x.shape[3] * factor,
-                                float(factor), spatial)
-    return F.interpolate(x, scale_factor=factor, mode="bilinear",
-                         align_corners=False)
+    with span("ops.resize") as s:
+        if spatial is not None:
+            y = _bilinear_banded(x, height(x) * factor, x.shape[3] * factor,
+                                 float(factor), spatial)
+        else:
+            y = F.interpolate(x, scale_factor=factor, mode="bilinear",
+                              align_corners=False)
+        _tag_resize(s, x, y)
+    return y
 
 
 def max_pool(x: torch.Tensor, factor: int,
@@ -171,11 +187,16 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
         h_in, (h_out, w_out) = height(x), out_hw
         if (h_out, w_out) == (h_in, x.shape[3]):
             return x
-        return _bilinear_banded(x, h_out, w_out, None, spatial)
-    if tuple(out_hw) == tuple(x.shape[2:]):
+    elif tuple(out_hw) == tuple(x.shape[2:]):
         return x
-    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
-                         align_corners=False, antialias=False)
+    with span("ops.resize") as s:
+        if spatial is not None:
+            y = _bilinear_banded(x, h_out, w_out, None, spatial)
+        else:
+            y = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                              align_corners=False, antialias=False)
+        _tag_resize(s, x, y)
+    return y
 
 
 def max_pool_torch(x: torch.Tensor, kernel: int, stride: int,

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ from .arch.csf_res2net import CSFNet
 from .arch.csnet import CSNet
 from .arch.layer_config import LayerConfig
 from .train.step import make_eval_step
+from .utils.profiler import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -98,7 +100,14 @@ class ServingModel:
     on each of the first N cards (0: every visible card) and splits each
     bucket that N divides over them, the others run on the first. On the
     CPU the N replicas all live on the CPU (the same arithmetic, for
-    tests)."""
+    tests).
+
+    Counters (``snapshot()``, cumulative): ``images_run``, the images the
+    model ran, padding included; ``images_padded``, the padding among them;
+    ``bucket_runs``, runs of each bucket. Spans (``utils.profiler``): a
+    call is ``model.call`` (``images``, ``padded``), with children
+    ``model.pad`` (a chunk's bucket routing and host pad), the eval step's
+    ``model.h2d`` and ``model.forward``, and ``model.readback``."""
 
     def __init__(self, path: str, device: str | torch.device,
                  mesh_devices: int | None = None):
@@ -143,6 +152,21 @@ class ServingModel:
                 model, from_u8=u8, quantize_u8=u8,
                 compute_dtype=_DTYPES[self.meta["compute_dtype"]]))
         self.model = self.models[0]
+        self._stats = {"images_run": 0, "images_padded": 0, "bucket_runs": {}}
+        self._stats_lock = threading.Lock()
+
+    def snapshot(self) -> dict:
+        """The counters (see the class docstring)."""
+        with self._stats_lock:
+            return {**self._stats,
+                    "bucket_runs": dict(self._stats["bucket_runs"])}
+
+    def _count(self, bucket: int, padded: int) -> None:
+        with self._stats_lock:
+            st = self._stats
+            st["images_run"] += bucket
+            st["images_padded"] += padded
+            st["bucket_runs"][bucket] = st["bucket_runs"].get(bucket, 0) + 1
 
     @property
     def input_shape(self) -> tuple[int, int, int, int]:
@@ -150,6 +174,10 @@ class ServingModel:
         return (m["batch"], m["h"], m["w"], 3)
 
     def __call__(self, images) -> np.ndarray:
+        with span("model.call") as s:
+            return self._call(images, s)
+
+    def _call(self, images, s) -> np.ndarray:
         if self.meta["wire"] == "u8":
             # refuse silent float->uint8 coercion: normalized floats from a
             # client on the f32 contract would wrap into garbage pixels
@@ -165,17 +193,24 @@ class ServingModel:
         if x.ndim != 4 or x.shape[1:] != self.input_shape[1:]:
             raise ValueError(f"expected (N, {self.meta['h']}, "
                              f"{self.meta['w']}, 3) images, got {x.shape}")
-        outs, i, n = [], 0, x.shape[0]
+        outs, i, n, padded = [], 0, x.shape[0], 0
         while i < n:
-            rem = n - i
-            b = next((b for b in self.batches if b >= rem), self.batches[-1])
-            take = min(rem, b)
-            chunk = x[i:i + take]
-            if take < b:
-                chunk = np.concatenate(
-                    [chunk, np.repeat(chunk[-1:], b - take, axis=0)])
-            outs.append(self._forward(np.ascontiguousarray(chunk))[:take])
+            with span("model.pad"):
+                rem = n - i
+                b = next((b for b in self.batches if b >= rem),
+                         self.batches[-1])
+                take = min(rem, b)
+                chunk = x[i:i + take]
+                if take < b:
+                    chunk = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], b - take, axis=0)])
+                chunk = np.ascontiguousarray(chunk)
+            outs.append(self._forward(chunk)[:take])
+            self._count(b, b - take)
             i += take
+            padded += b - take
+        if s is not None:
+            s.set(images=n, padded=padded)
         return np.concatenate(outs) if len(outs) > 1 else outs[0]
 
     def _forward(self, chunk: np.ndarray) -> np.ndarray:
@@ -184,10 +219,13 @@ class ServingModel:
         read back, so the cards run together), else on the first."""
         k = len(self._steps)
         if k == 1 or len(chunk) % k:
-            return self._steps[0](torch.from_numpy(chunk)).cpu().numpy()
+            out = self._steps[0](torch.from_numpy(chunk))
+            with span("model.readback"):
+                return out.cpu().numpy()
         parts = [step(torch.from_numpy(part)) for step, part in
                  zip(self._steps, np.split(chunk, k))]
-        return np.concatenate([p.cpu().numpy() for p in parts])
+        with span("model.readback"):
+            return np.concatenate([p.cpu().numpy() for p in parts])
 
 
 def load_artifact(path: str, device: str | torch.device,

@@ -21,7 +21,10 @@ Design:
 
 Endpoints:
   GET  /healthz   -> {"ok": true, ...artifact meta}
-  GET  /stats     -> requests/images/dispatches + per-dispatch batch histogram
+  GET  /stats     -> cumulative counters since start (``Batcher.snapshot``):
+                     requests/images/dispatches, the per-dispatch batch
+                     histogram, queue_wait_s/drain_s, and the serving
+                     model's images_run/images_padded/bucket_runs
   POST /predict
        Content-Type: application/x-npy  — body is a .npy array (N,H,W,3) or
            (H,W,3) on the artifact's wire contract (uint8 RGB for wire="u8",
@@ -35,6 +38,7 @@ Endpoints:
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import struct
 import threading
@@ -46,6 +50,7 @@ import numpy as np
 
 from .data.image_io import decode_image, encode_png, resize_u8_linear
 from .data.pipeline import IMAGENET_MEAN, IMAGENET_STD, rgb_u8
+from .utils.profiler import record, span
 
 # request-body cap: the largest legitimate request (a full f32 bucket,
 # e.g. 128 x 336^2 x 3 f32 ~ 174 MB) fits with headroom; anything bigger
@@ -61,13 +66,16 @@ class DispatchError(RuntimeError):
 
 
 class _Request:
-    __slots__ = ("images", "event", "result", "error")
+    __slots__ = ("images", "rid", "event", "result", "error", "queued_ns",
+                 "taken_ns")
 
-    def __init__(self, images: np.ndarray):
+    def __init__(self, images: np.ndarray, rid: int):
         self.images = images
+        self.rid = rid
         self.event = threading.Event()
         self.result = None
         self.error: Exception | None = None
+        self.queued_ns = self.taken_ns = 0
 
 
 class Batcher:
@@ -76,6 +84,17 @@ class Batcher:
     ``submit(images)`` blocks the calling thread until its slice of a
     batched device dispatch returns. All model calls happen on the one
     worker thread; submitters only validate, enqueue and wait.
+
+    ``stats`` (read with ``snapshot()``) are cumulative: requests, images,
+    dispatches and the histogram of images a dispatch; ``queue_wait_s``,
+    the seconds requests spent queued before the dispatcher took them into
+    a group, summed over requests; ``drain_s``, the seconds the dispatcher
+    spent draining groups (from its first request to the group's close,
+    at most ``max_wait_ms`` each). Spans (``utils.profiler``):
+    ``batcher.queue`` per request (on the submitting thread), and on the
+    dispatcher thread ``batcher.window`` (the drain) and
+    ``batcher.dispatch`` (concat, model call, scatter; ``requests``: the
+    ids of the requests it served).
     """
 
     def __init__(self, model, *, max_wait_ms: float = 3.0):
@@ -86,8 +105,9 @@ class Batcher:
         self._cond = threading.Condition()
         self._stopped = False
         self.stats = {"requests": 0, "images": 0, "dispatches": 0,
-                      "batch_hist": {}}
+                      "batch_hist": {}, "queue_wait_s": 0.0, "drain_s": 0.0}
         self._stats_lock = threading.Lock()
+        self._rids = itertools.count()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serve-dispatcher")
         self._thread.start()
@@ -119,10 +139,11 @@ class Batcher:
         return arr.astype(np.float32)
 
     def submit(self, images: np.ndarray, timeout_s: float = 60.0):
-        req = _Request(self.validate(images))
+        req = _Request(self.validate(images), next(self._rids))
         with self._cond:
             if self._stopped:
                 raise RuntimeError("batcher is stopped")
+            req.queued_ns = time.time_ns()
             self._queue.append(req)
             self._cond.notify()
         if not req.event.wait(timeout_s):
@@ -132,6 +153,8 @@ class Batcher:
                 except ValueError:
                     pass  # already taken into a group; result is dropped
             raise TimeoutError(f"no dispatch within {timeout_s}s")
+        record("batcher.queue", req.queued_ns, req.taken_ns, request=req.rid,
+               images=req.images.shape[0])
         if req.error is not None:
             raise req.error
         return req.result
@@ -158,7 +181,7 @@ class Batcher:
                 self._cond.wait()
             if self._stopped and not self._queue:
                 return None
-            group = [self._queue.pop(0)]
+            group = [self._take()]
             size = group[0].images.shape[0]
             deadline = time.monotonic() + self.max_wait_s
             # keep draining until the largest bucket is covered or the
@@ -168,7 +191,7 @@ class Batcher:
                     nxt = self._queue[0]
                     if size + nxt.images.shape[0] > self.max_batch:
                         break
-                    group.append(self._queue.pop(0))
+                    group.append(self._take())
                     size += nxt.images.shape[0]
                     continue
                 left = deadline - time.monotonic()
@@ -177,9 +200,17 @@ class Batcher:
                 self._cond.wait(timeout=left)
             return group
 
-    def _dispatch(self, group: list, sizes: list, batch) -> None:
+    def _take(self) -> _Request:
+        req = self._queue.pop(0)
+        req.taken_ns = time.time_ns()
+        return req
+
+    def _dispatch(self, group: list, closed_ns: int) -> None:
+        """Run ``group`` (closed at ``closed_ns``) as one model call and
+        hand each request its slice."""
+        sizes = [r.images.shape[0] for r in group]
         try:
-            out = self.model(batch)
+            out = self.model(self._concat(group))
             off = 0
             for r, n in zip(group, sizes):
                 r.result = out[off:off + n]
@@ -196,6 +227,9 @@ class Batcher:
                 self.stats["dispatches"] += 1
                 h = self.stats["batch_hist"]
                 h[sum(sizes)] = h.get(sum(sizes), 0) + 1
+                self.stats["queue_wait_s"] += sum(
+                    r.taken_ns - r.queued_ns for r in group) / 1e9
+                self.stats["drain_s"] += (closed_ns - group[0].taken_ns) / 1e9
             for r in group:
                 r.event.set()
 
@@ -209,13 +243,23 @@ class Batcher:
             group = self._take_group()
             if group is None:
                 return
-            self._dispatch(group, [r.images.shape[0] for r in group],
-                           self._concat(group))
+            closed = time.time_ns()
+            record("batcher.window", group[0].taken_ns, closed,
+                   requests=len(group))
+            with span("batcher.dispatch") as s:
+                if s is not None:
+                    s.set(requests=[r.rid for r in group])
+                self._dispatch(group, closed)
 
     def snapshot(self) -> dict:
+        """The counters (see the class docstring), merged with the serving
+        model's own (``ServingModel.snapshot``) where it keeps them."""
+        model = getattr(self.model, "snapshot", None)
         with self._stats_lock:
             s = dict(self.stats)
             s["batch_hist"] = dict(self.stats["batch_hist"])
+            if model is not None:
+                s.update(model())
         return s
 
 
@@ -263,6 +307,7 @@ def make_server(model, host: str = "127.0.0.1", port: int = 0, *,
 
         def _send(self, code: int, ctype: str, body: bytes,
                   close: bool = False) -> None:
+            self.status = code
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
@@ -284,6 +329,16 @@ def make_server(model, host: str = "127.0.0.1", port: int = 0, *,
                 self._send_json(404, {"error": f"no route {self.path}"})
 
         def do_POST(self):
+            """Span ``http.request`` (``images`` served, ``status``), with
+            children ``http.decode`` (the body's decode), the request's
+            ``batcher.queue`` and ``http.encode`` (encode and send)."""
+            self.status = self.images = None
+            with span("http.request") as s:
+                self._predict()
+                if s is not None:
+                    s.set(images=self.images, status=self.status)
+
+        def _predict(self):
             if self.path != "/predict":
                 self._send_json(404, {"error": f"no route {self.path}"})
                 return
@@ -305,18 +360,25 @@ def make_server(model, host: str = "127.0.0.1", port: int = 0, *,
                     return
                 body = self.rfile.read(n)
                 if ctype == "application/x-npy":
-                    arr = np.load(io.BytesIO(body), allow_pickle=False)
+                    with span("http.decode"):
+                        arr = np.load(io.BytesIO(body), allow_pickle=False)
                     squeeze = arr.ndim == 3
                     out = batcher.submit(arr[None] if squeeze else arr,
                                          timeout_s=request_timeout_s)
-                    buf = io.BytesIO()
-                    np.save(buf, out[0] if squeeze else out)
-                    self._send(200, "application/x-npy", buf.getvalue())
+                    self.images = out.shape[0]
+                    with span("http.encode"):
+                        buf = io.BytesIO()
+                        np.save(buf, out[0] if squeeze else out)
+                        self._send(200, "application/x-npy", buf.getvalue())
                 elif ctype.startswith("image/") or \
                         ctype == "application/octet-stream":
-                    x = _decode_image_request(body, model)
+                    with span("http.decode"):
+                        x = _decode_image_request(body, model)
                     out = batcher.submit(x, timeout_s=request_timeout_s)
-                    self._send(200, "image/png", _encode_png_saliency(out[0]))
+                    self.images = 1
+                    with span("http.encode"):
+                        self._send(200, "image/png",
+                                   _encode_png_saliency(out[0]))
                 else:
                     self._send_json(415, {"error": f"unsupported "
                                           f"Content-Type {ctype}"})

@@ -41,6 +41,7 @@ from ..data.pipeline import normalize_u8
 from ..parallel.mesh import Mesh2D, all_reduce_grads
 from ..parallel.spatial import SpatialCtx, spatial_sum
 from .optim import set_lr
+from ..utils.profiler import span
 from .step import _device, _on
 
 _FROZEN_BN = ("bn1", "bn3", "bns")
@@ -146,6 +147,11 @@ class CSFTrainStep:
     global batch, and the accumulated gradients are summed over the world
     before each apply. The returned loss is this rank's share of the
     micro-step's loss.
+
+    Spans (``utils.profiler``): each call is ``train.step``, with children
+    ``train.forward`` (copy, normalize, model, loss), ``train.backward``
+    (backward; on an apply, the gradients' all-reduce) and, on an apply,
+    ``train.optimizer`` (``set_lr``, ``optimizer.step``, ``zero_grad``).
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -165,34 +171,43 @@ class CSFTrainStep:
         self.micro = 0  # micro-steps since the last apply
 
     def __call__(self, batch: dict, lr: float) -> dict:
-        image = _on(self.device, batch["image"])
-        target = _on(self.device, batch["target"])
-        mask = batch.get("mask")
-        if mask is not None:
-            mask = _on(self.device, mask)
-        if self.from_u8:
-            image = normalize_u8(image)
-            target = target.float() / 255.0
-        if self.compute_dtype is not None:
-            image = image.to(self.compute_dtype)
-        if not self.model.training:
-            self.model.train()
-        args = (image,)
-        if self.mesh is not None and self.mesh.spatial > 1:
-            args = (image, SpatialCtx(self.mesh, self.image_h))
-        if self.remat:
-            logits = checkpoint(self.model, *args, use_reentrant=False)
-        else:
-            logits = self.model(*args)
-        loss = csf_loss(logits, target, mask, self.iter_size,
-                        self.batch_size)
-        loss.backward()
-        self.micro += 1
-        if self.micro == self.iter_size:
-            all_reduce_grads(self.model.parameters(), self.group)
-            set_lr(self.optimizer, lr)
-            self.optimizer.step()
-            self.optimizer.zero_grad(set_to_none=True)
+        with span("train.step"):
+            return self._step(batch, lr)
+
+    def _step(self, batch: dict, lr: float) -> dict:
+        with span("train.forward"):
+            image = _on(self.device, batch["image"])
+            target = _on(self.device, batch["target"])
+            mask = batch.get("mask")
+            if mask is not None:
+                mask = _on(self.device, mask)
+            if self.from_u8:
+                image = normalize_u8(image)
+                target = target.float() / 255.0
+            if self.compute_dtype is not None:
+                image = image.to(self.compute_dtype)
+            if not self.model.training:
+                self.model.train()
+            args = (image,)
+            if self.mesh is not None and self.mesh.spatial > 1:
+                args = (image, SpatialCtx(self.mesh, self.image_h))
+            if self.remat:
+                logits = checkpoint(self.model, *args, use_reentrant=False)
+            else:
+                logits = self.model(*args)
+            loss = csf_loss(logits, target, mask, self.iter_size,
+                            self.batch_size)
+        apply = self.micro + 1 == self.iter_size
+        with span("train.backward"):
+            loss.backward()
+            self.micro += 1
+            if apply:
+                all_reduce_grads(self.model.parameters(), self.group)
+        if apply:
+            with span("train.optimizer"):
+                set_lr(self.optimizer, lr)
+                self.optimizer.step()
+                self.optimizer.zero_grad(set_to_none=True)
             self.micro = 0
         return {"loss": loss.detach()}
 

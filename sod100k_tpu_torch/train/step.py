@@ -33,6 +33,7 @@ from ..ops.goct import GapCollector, bn_paths
 from ..ops.norm import convert_global_bn
 from ..parallel.mesh import Mesh2D, all_reduce_grads, all_reduce_sum
 from ..parallel.spatial import SpatialCtx, gather_bands
+from ..utils.profiler import span
 from . import dynamic_wd
 from .optim import set_lr
 
@@ -87,6 +88,11 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     global values on every rank, with the step's halo ``exchanges`` and
     ``halo_bytes`` under a spatial axis. With None, or the 1 x 1 mesh, the
     step is the single-process one.
+
+    Spans (``utils.profiler``): ``train.step``, with children
+    ``train.forward`` (copy, normalize, model, loss, penalty),
+    ``train.backward`` (``zero_grad``, backward, the gradients'
+    all-reduce) and ``train.optimizer`` (``set_lr``, ``optimizer.step``).
     """
     world = mesh.world if mesh is not None else None
     if world is not None:
@@ -104,41 +110,48 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     device = _device(model)
 
     def step(batch: dict, lr: float, penalty_on: float) -> dict:
-        image = _on(device, batch["image"])
-        target = _on(device, batch["target"])
-        if from_u8:
-            image = normalize_u8(image)
-            target = target.float() / 255.0
-        if compute_dtype is not None:
-            image = image.to(compute_dtype)
-        if not model.training:
-            model.train()
-        sp = SpatialCtx(mesh, image_h) if banded else None
-        gap = GapCollector(paths, sp) if fw else None
-        logits = model(image, gap, spatial=sp)
-        if world is None:
-            bce = bce_with_logits(logits, target)
-        else:  # this rank's share of the global mean over every pixel
-            h = image_h if banded else image.shape[1]
-            bce = F.binary_cross_entropy_with_logits(
-                logits.float(), target.float(), reduction="sum") \
-                / (batch_size * h * image.shape[2])
-        loss = bce
-        pen = torch.zeros((), device=device)
-        if fw:
-            gap.finish()
-            if counts_penalty:
-                pen = dynamic_wd.penalty(terms, gap.gap, batch_size)
-                loss = loss + penalty_on * flops_weight * pen
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if world is not None:
-            all_reduce_grads(model.parameters(), world)
-            m = all_reduce_sum({"loss": bce.detach(), "penalty": pen.detach()},
-                               world)
-            bce, pen = m["loss"], m["penalty"]
-        set_lr(optimizer, lr)
-        optimizer.step()
+        with span("train.step"):
+            return _step(batch, lr, penalty_on)
+
+    def _step(batch: dict, lr: float, penalty_on: float) -> dict:
+        with span("train.forward"):
+            image = _on(device, batch["image"])
+            target = _on(device, batch["target"])
+            if from_u8:
+                image = normalize_u8(image)
+                target = target.float() / 255.0
+            if compute_dtype is not None:
+                image = image.to(compute_dtype)
+            if not model.training:
+                model.train()
+            sp = SpatialCtx(mesh, image_h) if banded else None
+            gap = GapCollector(paths, sp) if fw else None
+            logits = model(image, gap, spatial=sp)
+            if world is None:
+                bce = bce_with_logits(logits, target)
+            else:  # this rank's share of the global mean over every pixel
+                h = image_h if banded else image.shape[1]
+                bce = F.binary_cross_entropy_with_logits(
+                    logits.float(), target.float(), reduction="sum") \
+                    / (batch_size * h * image.shape[2])
+            loss = bce
+            pen = torch.zeros((), device=device)
+            if fw:
+                gap.finish()
+                if counts_penalty:
+                    pen = dynamic_wd.penalty(terms, gap.gap, batch_size)
+                    loss = loss + penalty_on * flops_weight * pen
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if world is not None:
+                all_reduce_grads(model.parameters(), world)
+                m = all_reduce_sum({"loss": bce.detach(),
+                                    "penalty": pen.detach()}, world)
+                bce, pen = m["loss"], m["penalty"]
+        with span("train.optimizer"):
+            set_lr(optimizer, lr)
+            optimizer.step()
         out = {"loss": bce.detach(), "penalty": pen.detach()}
         if sp is not None:
             out.update(exchanges=sp.exchanges, halo_bytes=sp.halo_bytes)
@@ -163,6 +176,9 @@ def make_eval_step(model: nn.Module, *, from_u8: bool = False,
     passes the same whole images; each runs the model on its band of their
     rows (``parallel.spatial``), and the bands of the maps are gathered, so
     every rank returns the whole maps.
+
+    Spans (``utils.profiler``): ``model.h2d`` (the image to the device)
+    and ``model.forward`` (normalize, model, sigmoid, quantize; enqueued).
     """
     model.eval()
     device = _device(model)
@@ -172,20 +188,23 @@ def make_eval_step(model: nn.Module, *, from_u8: bool = False,
     def step(image: torch.Tensor) -> torch.Tensor:
         if model.training:
             model.eval()
-        image = image.to(device)
-        sp = None
-        if banded:
-            sp = SpatialCtx(mesh, image.shape[1])
-            image = sp.shard(image, dim=1)
-        if from_u8:
-            image = normalize_u8(image)
-        if compute_dtype is not None:
-            image = image.to(compute_dtype)
-        if sp is None:
-            sig = torch.sigmoid(model(image).float())
-        else:
-            sig = gather_bands(torch.sigmoid(model(image, spatial=sp).float()),
-                               sp, dim=1, h=sp.image_h)
-        return quantize_sigmoid_u8(sig) if quantize_u8 else sig
+        with span("model.h2d"):
+            image = image.to(device)
+        with span("model.forward"):
+            sp = None
+            if banded:
+                sp = SpatialCtx(mesh, image.shape[1])
+                image = sp.shard(image, dim=1)
+            if from_u8:
+                image = normalize_u8(image)
+            if compute_dtype is not None:
+                image = image.to(compute_dtype)
+            if sp is None:
+                sig = torch.sigmoid(model(image).float())
+            else:
+                sig = gather_bands(
+                    torch.sigmoid(model(image, spatial=sp).float()),
+                    sp, dim=1, h=sp.image_h)
+            return quantize_sigmoid_u8(sig) if quantize_u8 else sig
 
     return step
