@@ -5,11 +5,12 @@
 Drives CSNet-L (``init_layers(40, [0.5, 0.5])``, full width, 224^2, seeded
 random weights with calibrated BN statistics) through the port's serving
 entry points, with every ILBlock depthwise tail on the hand-written CUDA
-kernel (csrc/dw_chain.cu), then its training, pruning and dataset paths,
+kernel (csrc/dw_chain.cu) and every bilinear resize on the resize kernel
+(csrc/resize_bilinear.cu), then its training, pruning and dataset paths,
 then CSF+Res2Net-50/101 at 336^2, the drivers and the native SalMetric.
 Phases; any failure exits non-zero:
 
-1. build the kernel with nvcc (sm_90a) and print the card's name and
+1. build the kernels with nvcc (sm_90a) and print the card's name and
    power limit;
 2. kernel against its plain PyTorch version on the card, at the main path's
    shapes, at ragged ones and at one shape on each launch plan's edge: f32
@@ -93,8 +94,9 @@ Phases; any failure exits non-zero:
 9e. times (not gated): sweep img/s with and without wF, device time per
    batch split into the forward and the rest, the epoch beside phase 8b's
    step, the PNG read rate, and whether OpenCV's C++ library is present;
-10. CSF+Res2Net (``arch/csf_res2net.py``; plain PyTorch ops, no kernel of
-   its own: the phase counts 0 fused_dw_chain launches), seeded reference
+10. CSF+Res2Net (``arch/csf_res2net.py``; PyTorch ops and the resize
+   kernel, no depthwise tail: the phase counts 0 fused_dw_chain launches
+   and more than 0 resize launches), seeded reference
    init, and the 336^2 store of 10d built from the split's first 160 pairs
    through a .lst file (``CSFTrainData``) before the split goes:
 10a. Res2Net-50 f32 card vs CPU at B=2, 336^2 and 301x401 (non-integer
@@ -116,8 +118,17 @@ Phases; any failure exits non-zero:
 10f. times (not gated): the B=32 bf16 eval forward at 336^2 of both
    backbones (host clock, profiler device time by kernel, idle share), the
    B=1 latency, the B=8 bf16 micro-step (median of 20, device time, peak
-   memory), the epoch's img/s, and the head's largest resize in NCHW
-   against channels-last;
+   memory), the epoch's img/s;
+10g. the resize kernel, f32, at every resize of a Res2Net-50 served
+   forward at 336^2 (B = 1, 8, 32: 16 resizes, 16 launches) and of a
+   CSNet-L-x2 train-mode forward at 224^2 (B = 24), shapes read off the
+   ``ops.resize`` spans: bit-equal to ``F.interpolate`` and within the
+   plain version's bar (``resize_kernel.check_against_plain``); times (not
+   gated): device time per call (profiler), host time, the bound (the
+   source rows and columns read and the output written at 3.35 TB/s;
+   beside it the contract's whole input, as ``resize_roofline`` counts),
+   the plain version, ``F.interpolate`` as library_ms, per shape and per
+   forward;
 11. the drivers as a user runs them (``python -m sod100k_tpu_torch.cli.*``)
    on CSNet-L at basewidth 40 over a synthetic tree of 96 DUTS-TR and 48
    ECSSD PNG pairs at 300x400, counting ``fused_dw_chain`` launches
@@ -251,8 +262,9 @@ Phases; any failure exits non-zero:
    Printed, not gated: each tool's rows and times, the phase's wall time.
 
 Needs torch with CUDA and nvcc; no jax, cv2, PIL or yaml. The second line from
-the end is a JSON summary of the kernels; the last line is the run's JSON
-result.
+the end is a JSON summary of the kernels (the resize kernel's times are
+per B=8 CSF forward, ``per_forward`` has each of 10g's forwards); the last
+line is the run's JSON result.
 
     python3 chip_smoke.py --variants
 
@@ -307,7 +319,7 @@ from sod100k_tpu_torch.metrics.smeasure import s_measure_batch
 from sod100k_tpu_torch.metrics.wfmeasure import (precompute_wf_tables,
                                                  weighted_f_measure,
                                                  wf_per_image_device)
-from sod100k_tpu_torch.ops import cuda_lib, dw_chain, resample
+from sod100k_tpu_torch.ops import cuda_lib, dw_chain, resize_kernel
 from sod100k_tpu_torch.prune import build_pruned_csnet, layer_gammas, prune
 from sod100k_tpu_torch.serve import export_artifact, load_artifact
 from sod100k_tpu_torch.serve_http import make_server
@@ -320,6 +332,7 @@ from sod100k_tpu_torch.train.optim import (cosine_lr, make_adam, make_adam_dwd,
                                            make_sgd)
 from sod100k_tpu_torch.train.step import (make_eval_step, make_train_step,
                                           quantized_mae)
+from sod100k_tpu_torch.utils import profiler
 
 HW = (224, 224)
 CALLS_PER_FORWARD = 33
@@ -1887,22 +1900,128 @@ def phase_csf_times(model_cpu: CSFNet, epoch: dict, gpu: str) -> float:
         f"{epoch['ms']:.2f} ms per micro-step  [{gpu}]")
     del model, step
 
-    # the head's largest resize (fuse1x1's branch 1 -> 84^2 at B=32): the
-    # NCHW path the port takes against the channels-last one, a yardstick
-    # for later work (not used by the port)
-    x = torch.randn(32, 1408, 42, 42, device="cuda", dtype=torch.bfloat16)
-    xl = x.contiguous(memory_format=torch.channels_last)
-    nchw = cuda_ms(lambda: resample.resize_bilinear(x, (84, 84)), 10)
-    nhwc = cuda_ms(lambda: resample.resize_bilinear(xl, (84, 84)), 10)
-    both = cuda_ms(lambda: resample.resize_bilinear(
-        x.contiguous(memory_format=torch.channels_last), (84, 84))
-        .contiguous(), 10)
-    d = (resample.resize_bilinear(x, (84, 84)).float()
-         - resample.resize_bilinear(xl, (84, 84)).float()).abs().max().item()
-    say(f"  resize (32, 1408, 42, 42) -> 84^2 bf16: NCHW {nchw:.3f} ms, "
-        f"channels-last {nhwc:.3f} ms, with both layout changes "
-        f"{both:.3f} ms (CUDA events, 10 calls); max |d| {d:.1e}  [{gpu}]")
     return med
+
+
+RESIZE_CSF_BATCHES = (1, 8, 32)  # the served buckets and the B=32 forward
+RESIZE_TRAIN_BATCH = 24          # the CSNet-L-x2 recipe's batch
+
+
+def resize_shapes(run) -> list:
+    """The (input shape, output size) of every ``ops.resize`` span of
+    ``run()``, in order."""
+    profiler.enable()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        profiler.disable()
+    spans, _ = profiler.drain()
+    return [(tuple(s.attrs["shape"]), tuple(s.attrs["out_shape"][2:]))
+            for s in spans if s.name == "ops.resize"]
+
+
+def source_taps(n_in: int, n_out: int) -> int:
+    """How many of an axis's ``n_in`` source indices a resize to ``n_out``
+    reads (a downsample skips some)."""
+    scale = np.float32(n_in) / np.float32(n_out)
+    src = np.maximum(scale * (np.arange(n_out, dtype=np.float32) + 0.5)
+                     - 0.5, 0)
+    i0 = src.astype(np.int64)
+    return len(np.union1d(i0, np.minimum(i0 + 1, n_in - 1)))
+
+
+def time_resizes(shapes: list, what: str, gpu: str) -> dict:
+    """10g for one forward's resizes (f32): at each shape the kernel is
+    ``F.interpolate`` bit for bit and within the plain version's bar; then
+    times (not gated): the kernel's device time per call (profiler, 10
+    calls), the wrapper's host time, the bound (the source rows and
+    columns the outputs read, and the output, at 3.35 TB/s; the contract
+    bound that ``resize_roofline`` reads counts the whole input), the
+    plain version (CUDA events) and ``F.interpolate`` (library_ms,
+    profiler). Returns the sums over the forward."""
+    tot = dict.fromkeys(("device", "host", "bound", "contract", "plain",
+                         "library", "bytes"), 0.0)
+    by = {"device": set(), "library": set()}
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for (shape, out_hw) in sorted(set(shapes)):
+        calls = shapes.count((shape, out_hw))
+        x = torch.randn(shape, device="cuda", generator=gen)
+        kern = lambda: resize_kernel.interpolate(x, size=out_hw)  # noqa: E731
+        lib = lambda: torch.nn.functional.interpolate(  # noqa: E731
+            x, size=out_hw, mode="bilinear", align_corners=False)
+        plain = lambda: resize_kernel.bilinear_ref(x, out_hw)  # noqa: E731
+        got = kern()
+        check(torch.equal(got, lib()), f"10g {what} {shape} -> {out_hw}: "
+              f"the kernel is F.interpolate bit for bit")
+        err = resize_kernel.check_against_plain(got, x, out_hw)
+        del got
+        dev, dev_by = device_ms(kern, match="resize_bilinear_nchw", iters=10)
+        lib_ms, lib_by = device_ms(lib, match="upsample_bilinear2d",
+                                   iters=10)
+        by["device"].add(dev_by)
+        by["library"].add(lib_by)
+        n, c, h, w = shape
+        out = n * c * out_hw[0] * out_hw[1]
+        read = n * c * source_taps(h, out_hw[0]) * source_taps(w, out_hw[1])
+        row = dict(device=dev, host=host_us(kern), plain=cuda_ms(plain, 5),
+                   library=lib_ms, bytes=(read + out) * x.element_size())
+        row["bound"] = row["bytes"] / HBM_BYTES_S * 1e3
+        row["contract"] = ((x.numel() + out) * x.element_size()
+                           / HBM_BYTES_S * 1e3)
+        for k in tot:
+            tot[k] += calls * row[k]
+        say(f"  {what} f32 {shape} -> {out_hw} x{calls}: device "
+            f"{dev * 1e3:.2f} us by {dev_by}, bound {row['bound'] * 1e3:.2f}"
+            f" us ({row['bound'] / dev:.1%} of it; contract "
+            f"{row['contract'] / dev:.1%}), host {row['host']:.1f} "
+            f"us, plain {row['plain']:.4f} ms, library_ms (F.interpolate) "
+            f"{lib_ms:.4f} ms by {lib_by}; {err:.2e} from the plain version "
+            f" [{gpu}]")
+        del x
+    say(f"  per {what} forward ({len(shapes)} resizes): kernel device "
+        f"{tot['device']:.4f} ms, bound {tot['bound']:.4f} ms "
+        f"({tot['bound'] / tot['device']:.1%} of it; contract "
+        f"{tot['contract'] / tot['device']:.1%}), host "
+        f"{tot['host']:.0f} us, plain {tot['plain']:.4f} ms, F.interpolate "
+        f"{tot['library']:.4f} ms  [{gpu}]")
+    tot["calls"] = len(shapes)
+    tot.update({f"{k}_by": "+".join(sorted(v)) for k, v in by.items()})
+    return tot
+
+
+def phase_resize(model_cpu: CSFNet, gpu: str) -> dict:
+    """10g: the resize kernel at every resize of a Res2Net-50 served f32
+    forward at 336^2 (B = 1, 8, 32; 16 resizes, all through the kernel)
+    and of a CSNet-L-x2 train-mode forward at 224^2 (B = 24), shapes read
+    off the ``ops.resize`` spans (``time_resizes``). Returns each
+    forward's sums, keyed csf_b1, csf_b8, csf_b32, csnet_train_b24."""
+    out = {}
+    model = csf_on(model_cpu, "cuda")
+    evaluate = make_eval_step(model, from_u8=True)
+    for b in RESIZE_CSF_BATCHES:
+        images = torch.from_numpy(disc_images(np.random.default_rng(26), b,
+                                              CSF_HW)).cuda()
+        before = resize_kernel.launches
+        shapes = resize_shapes(lambda: evaluate(images))
+        check(len(shapes) == 16 and resize_kernel.launches - before == 16,
+              f"10g: the B={b} CSF forward resizes 16 times, each through "
+              f"the kernel ({len(shapes)} spans, "
+              f"{resize_kernel.launches - before} launches)")
+        out[f"csf_b{b}"] = time_resizes(shapes, f"CSF B={b}", gpu)
+    del model, evaluate
+    csnet = CSNet(init_layers(40, (0.5, 0.5)), seed=0, device="cuda").train()
+    x = torch.randn(RESIZE_TRAIN_BATCH, *HW, 3, device="cuda")
+    before = resize_kernel.launches
+    shapes = resize_shapes(lambda: csnet(x))
+    check(len(shapes) > 0 and resize_kernel.launches - before == len(shapes),
+          "10g: every resize of the CSNet-L-x2 train forward goes through "
+          "the kernel")
+    out[f"csnet_train_b{RESIZE_TRAIN_BATCH}"] = time_resizes(
+        shapes, f"CSNet-L-x2 train B={RESIZE_TRAIN_BATCH}", gpu)
+    del csnet, x
+    torch.cuda.empty_cache()
+    return out
 
 
 # --variants: A/B of the kernel's plan sizes (module constants of
@@ -3983,11 +4102,12 @@ def main() -> None:
     say("TF32 off for convolutions and matmuls: f32 phases run in full f32")
 
     say("phase 1: build")
-    t0 = time.perf_counter()
-    lib = cuda_lib.build("dw_chain")
-    say(f"  built {lib} in {time.perf_counter() - t0:.1f} s")
-    with open(f"{lib}.log") as f:
-        say("  " + f.read().strip().replace("\n", "\n  "))
+    for name in ("dw_chain", "resize_bilinear"):
+        t0 = time.perf_counter()
+        lib = cuda_lib.build(name)
+        say(f"  built {lib} in {time.perf_counter() - t0:.1f} s")
+        with open(f"{lib}.log") as f:
+            say("  " + f.read().strip().replace("\n", "\n  "))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4073,6 +4193,7 @@ def main() -> None:
 
     t10 = time.perf_counter()
     dw_chain.launches = 0
+    resize_before = resize_kernel.launches
     say("10a: Res2Net-50 and -101, f32, card vs CPU")
     r50 = phase_csf_forward()
     say("10b: serving a Res2Net-50 artifact at 336^2")
@@ -4088,11 +4209,16 @@ def main() -> None:
     say("10f: times (not gated)")
     csf_step_ms = phase_csf_times(r50, csf_epoch, gpu)
     torch.cuda.synchronize()
+    csf_resize_launches = resize_kernel.launches - resize_before
+    say("10g: the resize kernel at every resize of the CSF served forward "
+        "and the CSNet-L-x2 train forward")
+    resize = phase_resize(r50, gpu)
     csf_launches = dw_chain.launches
     say(f"  phase 10 took {time.perf_counter() - t10:.1f} s; "
         f"{csf_launches} fused_dw_chain launches (CSF runs no TPU kernel's "
-        f"port)")
+        f"port); {csf_resize_launches} resize kernel launches over 10a-10f")
     check(csf_launches == 0, "the CSF path launches no depthwise-tail kernel")
+    check(csf_resize_launches > 0, "the CSF path resizes through the kernel")
 
     say("phase 11: the drivers (python -m sod100k_tpu_torch.cli.*) on "
         "CSNet-L, B=24 at 224^2")
@@ -4153,7 +4279,17 @@ def main() -> None:
         "tools_launches": tools_launches, "dp_launches": dp_launches,
         "spatial_launches": spatial_launches,
         "resident_mesh_launches": resident_mesh_launches,
-        "tools_bench_launches": tools_bench_launches}]}))
+        "tools_bench_launches": tools_bench_launches}, {
+        "name": "resize_bilinear", "route": "cuda",
+        "source": "sod100k_tpu_torch/csrc/resize_bilinear.cu",
+        "replaces": None, "launches": resize["csf_b8"]["calls"],
+        "ms": resize["csf_b8"]["device"],
+        "plain_ms": resize["csf_b8"]["plain"],
+        "bound_ms": resize["csf_b8"]["bound"], "bound_by": "bytes",
+        "library_ms": resize["csf_b8"]["library"],
+        "host_us": resize["csf_b8"]["host"],
+        "csf_launches": csf_resize_launches,
+        "per_forward": resize}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

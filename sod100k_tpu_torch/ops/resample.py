@@ -3,7 +3,8 @@
 Port of ``sod100k_tpu/ops/resample.py:79-191``:
 
 - coarse->fine paths upsample bilinearly with half-pixel centers and edge
-  clamping (``F.interpolate(mode='bilinear', align_corners=False)``),
+  clamping (``F.interpolate(mode='bilinear', align_corners=False)``; on
+  the card the port's kernel, ``resize_kernel.interpolate``, bit for bit),
 - fine->coarse paths max-pool without overlap,
 - stride-2 gOctConvs average-pool their input first,
 - the CSF dialect resizes between branch shapes of any ratio
@@ -18,12 +19,12 @@ Under a ``parallel.spatial.SpatialCtx`` (``spatial=``) each function takes
 and returns this rank's band of the rows. The pools fetch the rows of
 their windows; padding (-inf for max, zeros for average) and the average's
 divisor (``ceil_mode``, ``count_include_pad``) follow the true image edges.
-A power-of-two bilinear upsample runs torch's own kernel on a window with
+A power-of-two bilinear upsample runs the whole-map resize on a window with
 one spare source row on each side (its coordinates are the global ones
 shifted by whole rows, exactly in f32); any other ratio computes each
 output row's source rows and weights from global coordinates (torch's
 half-pixel rule in ATen's arithmetic type, clamped only at the image
-edge), fetches them, resamples the columns with ``F.interpolate`` and
+edge), fetches them, resamples the columns with the whole-map resize and
 blends the rows in that type (f32; f64 for f64 maps).
 
 The general path also computes the power-of-two ratios, a few ulps from
@@ -33,8 +34,8 @@ the forward at 2x and 4x and up to 5.1e-5 in the input gradient at 16x
 80GB HBM3, 700 W; ``chip_smoke.py`` phase 15) it moves the f32 CSNet-L
 bands from bit-equal to one process to 3.8e-5 in the logits, and the CSF
 micro-step's gradients from 0.816 to 0.906 of the JAX bar (worst: the
-stem conv's weight). So the power-of-two case keeps torch's kernel, and
-the bands keep one process's numbers.
+stem conv's weight). So the power-of-two case keeps the whole-map
+resize, and the bands keep one process's numbers.
 
 A bilinear upsample or resize that changes the shape is a span
 ``ops.resize`` (``utils.profiler``) with its input and output shapes and
@@ -51,6 +52,7 @@ import torch.nn.functional as F
 
 from ..parallel.spatial import SpatialCtx, banded, height
 from ..utils.profiler import span
+from . import resize_kernel
 
 
 def _source_rows(h_in: int, h_out: int, factor: Optional[float], opmath):
@@ -76,11 +78,9 @@ def _bilinear_banded(x: torch.Tensor, h_out: int, w_out: int,
 
     def interpolate(t, rows):
         if factor is not None:
-            return F.interpolate(t, scale_factor=(rows / t.shape[2],
-                                                  factor),
-                                 mode="bilinear", align_corners=False)
-        return F.interpolate(t, size=(rows, w_out), mode="bilinear",
-                             align_corners=False)
+            return resize_kernel.interpolate(
+                t, scale_factor=(rows / t.shape[2], factor))
+        return resize_kernel.interpolate(t, size=(rows, w_out))
 
     f = h_out // h_in
     if h_out == h_in * f and f & (f - 1) == 0:
@@ -149,8 +149,7 @@ def upsample_bilinear(x: torch.Tensor, factor: int,
             y = _bilinear_banded(x, height(x) * factor, x.shape[3] * factor,
                                  float(factor), spatial)
         else:
-            y = F.interpolate(x, scale_factor=factor, mode="bilinear",
-                              align_corners=False)
+            y = resize_kernel.interpolate(x, scale_factor=factor)
         _tag_resize(s, x, y)
     return y
 
@@ -193,8 +192,7 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
         if spatial is not None:
             y = _bilinear_banded(x, h_out, w_out, None, spatial)
         else:
-            y = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
-                              align_corners=False, antialias=False)
+            y = resize_kernel.interpolate(x, size=tuple(out_hw))
         _tag_resize(s, x, y)
     return y
 

@@ -47,7 +47,7 @@ from ..arch.csf_res2net import CSFNet
 from ..arch.csnet import CSNet
 from ..arch.layer_config import init_layers
 from ..data.pipeline import require_device
-from ..ops import dw_chain
+from ..ops import dw_chain, resize_kernel
 from ..train.step import make_eval_step
 from . import timing
 from .bench import random_images, seeded_csnet, with_tail
@@ -76,7 +76,7 @@ def nbytes(*tensors) -> int:
 
 
 def _integer_factor(x: torch.Tensor, size, scale_factor):
-    """The upsampling factor of an F.interpolate call when it is one
+    """The upsampling factor of a bilinear resize call when it is one
     integer for both axes, else None."""
     h, w = x.shape[2:]
     if scale_factor is not None:
@@ -93,13 +93,14 @@ def _integer_factor(x: torch.Tensor, size, scale_factor):
 
 
 class NearestUpsample(TorchFunctionMode):
-    """Inside the mode, a bilinear ``F.interpolate`` by one integer factor
-    repeats pixels instead (the JAX probe's ``nearest``,
+    """Inside the mode, a bilinear resize by one integer factor (the
+    port's ``resize_kernel.interpolate``, on the card and the CPU) repeats
+    pixels instead (the JAX probe's ``nearest``,
     ``tools/perf_probe.py:76-79``); other calls run as they are."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func is F.interpolate and kwargs.get("mode") == "bilinear":
+        if func is resize_kernel.interpolate:
             x = args[0]
             f = _integer_factor(x, kwargs.get("size"),
                                 kwargs.get("scale_factor"))

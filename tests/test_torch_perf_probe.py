@@ -27,6 +27,7 @@ from sod100k_tpu.interop.torch_ckpt import state_dict_to_pytree
 from sod100k_tpu.ops.goct import ApplyCtx
 from sod100k_tpu_torch.arch.csnet import CSNet, calibrate_bn
 from sod100k_tpu_torch.arch.layer_config import init_layers
+from sod100k_tpu_torch.ops import resize_kernel
 from sod100k_tpu_torch.tools import perf_probe
 
 CPU = torch.device("cpu")
@@ -97,15 +98,12 @@ def test_ablation_variant_is_the_jax_probes(variant, calibrated,
 def test_nearest_mode_leaves_other_resizes_alone():
     x = torch.arange(2 * 3 * 4 * 5, dtype=torch.float32).reshape(2, 3, 4, 5)
     F = torch.nn.functional
+    resize = resize_kernel.interpolate
     with perf_probe.NearestUpsample():
-        up2 = F.interpolate(x, scale_factor=2, mode="bilinear",
-                            align_corners=False)
-        to8 = F.interpolate(x, size=(16, 20), mode="bilinear",
-                            align_corners=False)
-        odd = F.interpolate(x, size=(7, 9), mode="bilinear",
-                            align_corners=False)
-        three = F.interpolate(x, size=(12, 15), mode="bilinear",
-                              align_corners=False)
+        up2 = resize(x, scale_factor=2)
+        to8 = resize(x, size=(16, 20))
+        odd = resize(x, size=(7, 9))
+        three = resize(x, size=(12, 15))
     rep = x.repeat_interleave(2, 2).repeat_interleave(2, 3)
     assert torch.equal(up2, rep)
     assert torch.equal(to8, x.repeat_interleave(4, 2).repeat_interleave(4, 3))
