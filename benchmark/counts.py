@@ -5,11 +5,11 @@
 Prints the counts as JSON: ``flops_per_img``, the FLOPs of one image's
 forward at the configuration's size as ``torch.utils.flop_counter``
 counts them (convolutions and matrix products; norms, activations and
-resizes are not counted), and for CSNet ``dw_chain``, the fused
-depthwise tail's bytes and operations per image from the shapes of its
-tails in that forward (``roofline.dw_chain_work``). The configuration
-files hold these numbers; ``tests/test_benchmark_counts.py`` counts them
-again.
+resizes are not counted), and whatever further counts the family's
+``count_forward`` returns from that forward (CSNet: ``dw_chain``, the
+fused depthwise tail's bytes and operations per image). The
+configuration files hold these numbers; ``tests/test_benchmark_counts.py``
+counts them again.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ import sys
 
 import torch
 
-from . import roofline
 from .families import family
 from .reference.common import fill_spec
 
@@ -31,15 +30,10 @@ def count(cfg: dict) -> dict:
     state = fill_spec(fam.spec(), {})
     hw = int(cfg["hw"])
     x = torch.zeros((1, hw, hw, 3), dtype=torch.uint8)
-    tails: list = []
     counter = FlopCounterMode(display=False)
     with counter, torch.no_grad():
-        fam.forward(state, x, tails=tails)
-    out = {"flops_per_img": int(counter.get_total_flops())}
-    if cfg["family"] == "csnet":
-        out["dw_chain"] = roofline.dw_chain_work(
-            [tuple(s[1:]) for s in tails])
-    return out
+        extra = fam.count_forward(state, x)
+    return {"flops_per_img": int(counter.get_total_flops()), **extra}
 
 
 def main(argv=None) -> None:

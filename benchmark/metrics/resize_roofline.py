@@ -3,7 +3,7 @@ window: the least time of their bytes at the HBM rate (each ``ops.resize``
 span's input read once and output written once, from its shapes and
 itemsize: the op's contract, whatever kernel computes it) over the device
 seconds of what those spans launched (``device_by_program_span``,
-``benchmark.program_trace``). None without the program's spans."""
+``trace.ProgramTracer``). None without the program's spans."""
 
 import math
 

@@ -1,9 +1,9 @@
 """train.forward_idle_pct: the share of the traced window in which the
 device sat idle while the host was in the train step's ``train.forward``
 span and the ``ops.resize`` spans under it, from ``idle_by_program_span``
-(``benchmark.program_trace``). None without the program's spans."""
+(``trace.ProgramTracer``). None without the program's spans."""
 
-from benchmark.program_trace import idle_pct
+from benchmark.trace import idle_pct
 
 
 def read(run: dict):

@@ -2,13 +2,14 @@
 by the load generator in its own process.
 
 Set-up goes the users' way: seeded weights made on the device, BN
-statistics calibrated by the reference, ``serve.export_artifact`` into a
-temporary directory, ``serve.load_artifact``, ``serve_http.make_server``
-with its warm-up of every bucket. Between the daemon's batcher and the
-serving model sits ``TimedModel``: it times every call (a call returns
-host numpy, so it is synchronised); in a traced run its calls name the
-device's idle gaps that they cover. After the
-window every served map is held to the reference (``check``).
+statistics calibrated by the reference, the family's serving model (for
+CSNet and CSF ``serve.export_artifact`` into a temporary directory and
+``serve.load_artifact``), ``serve_http.make_server`` with its warm-up of
+every bucket. Between the daemon's batcher and the serving model sits
+``TimedModel``: it times every call (a call returns host numpy, so it is
+synchronised); in a traced run (``trace.ProgramTracer``, the dispatcher
+thread's spans) its calls name the device's idle gaps that they cover.
+After the window every served map is held to the reference (``check``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from . import check, roofline, weights
 from . import traffic as tr
 from .families import family
 from .reference.common import tf32
-from .trace import Tracer
+from .trace import OWNER, ProgramTracer
 
 
 class TimedModel:
@@ -97,7 +98,7 @@ class Session:
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device,
                  workdir: str):
-        from sod100k_tpu_torch import serve, serve_http
+        from sod100k_tpu_torch import serve_http
 
         self.fam = family(cfg)
         self.device = device
@@ -105,18 +106,16 @@ class Session:
         self.pool = tr.make_pool(seed, traffic["pool"], hw)
         self.state = weights.seeded_state(self.fam.spec(), seed, device)
         weights.calibrate(self.fam, self.state, self.pool)
-        art = serve.export_artifact(
-            os.path.join(workdir, "artifact"),
-            self.fam.program_model(self.state, device), batch=cfg["buckets"],
-            hw=(hw, hw), dtype=getattr(torch, cfg["dtype"]), wire=cfg["wire"])
-        self.model = TimedModel(serve.load_artifact(art, device))
+        self.model = TimedModel(self.fam.serving_model(self.state, device,
+                                                       workdir))
         self.srv = serve_http.make_server(self.model, port=0,
                                           max_wait_ms=traffic["max_wait_ms"])
         self.thread = threading.Thread(target=self.srv.serve_forever,
                                        daemon=True)
         self.thread.start()
 
-    def drive(self, lg: LoadGen, tracer: Tracer | None = None) -> tuple:
+    def drive(self, lg: LoadGen,
+              tracer: ProgramTracer | None = None) -> tuple:
         """One window: (the load generator's result, batcher snapshots
         before and after, the model calls, the window's opening on the
         monotonic clock); ``tracer`` traces it."""
@@ -182,7 +181,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     workdir = tempfile.mkdtemp(prefix="sod100k-bench-")
     params = loadgen_params(cfg, traffic, seed, seconds, workdir)
     lg = LoadGen(params)
-    tracer = Tracer(device) if trace else None
+    tracer = ProgramTracer(device, OWNER["serve"]) if trace else None
     sess = None
     try:
         sess = Session(cfg, traffic, seed, device, workdir)

@@ -77,3 +77,36 @@ def test_train_faults_are_caught(monkeypatch):
     for fault in (half["checks"], unchanged["checks"]):
         assert any(fault[k]["value"] > 10 * sound[k]["value"]
                    and fault[k]["value"] > fault[k]["limit"] for k in fault)
+
+
+CSF_TRAIN = {"config": {"hw": 32},
+             "traffic": {"batch": 2, "resident_batches": 6}}
+
+
+def _csf_train(root):
+    return run.run_cell("csf-r2n50.train-b8", SEED, 1.0, False, "cpu",
+                        root=root, overrides=CSF_TRAIN)
+
+
+def test_csf_train_faults_are_caught(monkeypatch, csf_train_root):
+    sound = _csf_train(csf_train_root)["checks"]
+    from sod100k_tpu_torch.train import csf_step
+
+    call = csf_step.CSFTrainStep.__call__
+
+    def half_batch(self, batch, lr):
+        n = batch["image"].shape[0] // 2
+        return call(self, {k: v[:n] for k, v in batch.items()}, lr)
+
+    with monkeypatch.context() as m:
+        m.setattr(csf_step.CSFTrainStep, "__call__", half_batch)
+        half = _csf_train(csf_train_root)
+    assert not half["correct"]
+    with monkeypatch.context() as m:
+        m.setattr(torch.optim.Adam, "step", lambda self, closure=None: None)
+        unchanged = _csf_train(csf_train_root)
+    assert not unchanged["correct"]
+    assert unchanged["checks"]["change_gap"]["value"] == pytest.approx(1.0)
+    for fault in (half["checks"], unchanged["checks"]):
+        assert any(fault[k]["value"] > 10 * sound[k]["value"]
+                   and fault[k]["value"] > fault[k]["limit"] for k in fault)

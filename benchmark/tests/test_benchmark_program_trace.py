@@ -1,9 +1,11 @@
-"""The program's spans in a trace (``benchmark.program_trace``) on synthetic
-events, the readers of the metrics they feed, and runs on the CPU: the
-untraced ``benchmark.run`` never turns the recorder on, and a program without
-the recorder or its counters leaves out only the new metrics."""
+"""The program's spans in a trace (``trace.ProgramTracer``) on synthetic
+events, the readers of the metrics they feed, and runs on the CPU: a traced
+``benchmark.run`` hands the readers the program's spans, the untraced one
+never turns the recorder on, and a program without the recorder or its
+counters leaves out only the new metrics."""
 
 import json
+import os
 from unittest import mock
 
 import pytest
@@ -70,25 +72,25 @@ SPANS = [_span("train.step", 0, 60), _span("train.forward", 2, 45),
 
 
 def test_splits_by_innermost_span_and_correlation_id():
-    rows = pt.event_rows(EVENTS)
-    out = pt.reduce_program(rows, S, S + 100 * MS, SPANS, "MainThread")
+    rows = trace.event_rows(EVENTS)
+    out = trace.reduce_program(rows, S, S + 100 * MS, SPANS, "MainThread")
     idle = out["idle_by_program_span"]
     # gaps: 0-10 (mid 5: forward), 20-30 (mid 25: forward), 40-75 (mid
     # 57: backward), 80-90 and 95-100 (no span)
     assert idle == pytest.approx({"train.forward": 0.020,
                                   "train.backward": 0.035,
-                                  pt.NO_SPAN: 0.015})
+                                  trace.NO_SPAN: 0.015})
     base = trace.reduce(EVENTS, S, S + 100 * MS)
     assert sum(idle.values()) == pytest.approx(
         base["window_s"] - base["busy_s"])
     dev = out["device_by_program_span"]
     assert dev == pytest.approx({"train.forward": 0.010,
-                                 "ops.resize": 0.010, pt.NO_SPAN: 0.010})
+                                 "ops.resize": 0.010, trace.NO_SPAN: 0.010})
     assert sum(dev.values()) == pytest.approx(sum(base["kernels"].values()))
 
 
 def test_segments_label_the_innermost_span():
-    starts, ends, labels = pt.segments(SPANS[:4])
+    starts, ends, labels = trace.segments(SPANS[:4])
     assert list(zip((starts - S) // MS, (ends - S) // MS, labels)) == [
         (0, 2, "train.step"), (2, 11, "train.forward"),
         (11, 15, "ops.resize"), (15, 45, "train.forward"),
@@ -105,7 +107,7 @@ class _Prof:
 
 
 def _traced(rec):
-    t = pt.ProgramTracer(torch.device("cpu"), "MainThread")
+    t = trace.ProgramTracer(torch.device("cpu"), "MainThread")
     t._rec = rec
     if rec is not None:
         rec.enable()
@@ -183,7 +185,7 @@ def test_a_program_without_the_counters_leaves_out_only_the_new_metrics():
 
 
 def test_the_probe_runs_without_the_recorder():
-    with mock.patch.object(pt, "_recorder", return_value=None):
+    with mock.patch.object(trace, "_recorder", return_value=None):
         line = pt.probe("csf-r2n50.serve-mixed", SEED, 1.0, "trace", "cpu",
                         overrides=SERVE)
     assert line["correct"]
@@ -203,7 +205,7 @@ def test_the_probe_reads_the_programs_spans(workload, overrides, tmp_path):
     idle = line["trace"]["idle_by_program_span"]
     # no device events on the CPU: the whole window is idle
     assert sum(idle.values()) == pytest.approx(line["trace"]["window_s"])
-    assert all(n == pt.NO_SPAN or n.split(".")[0] in ("batcher", "model",
+    assert all(n == trace.NO_SPAN or n.split(".")[0] in ("batcher", "model",
                                                       "ops", "train")
                for n in idle)
     kind = "serve" if "serve" in workload else "train"
@@ -213,3 +215,44 @@ def test_the_probe_reads_the_programs_spans(workload, overrides, tmp_path):
     recorded = pt.probe(workload, SEED, 1.0, "record", "cpu",
                         overrides=overrides)
     assert recorded["correct"] and recorded["spans_recorded"] > 0
+
+
+SPAN_METRICS = {"serve.launch_idle_pct", "resize_roofline",
+                "train.forward_idle_pct", "train.backward_idle_pct",
+                "train.optimizer_idle_pct"}
+
+
+@pytest.mark.parametrize("workload,overrides,owner_span", [
+    ("csf-r2n50.serve-mixed", SERVE, "model.call"),
+    ("csnet-l-x2.train-b24", TRAIN, "train.optimizer")])
+def test_a_traced_run_hands_the_readers_the_programs_spans(
+        workload, overrides, owner_span, monkeypatch):
+    seen, plain = {}, run.reader
+
+    def spying(name):
+        read = plain(name)
+
+        def spy(layer):
+            seen[name] = layer
+            return read(layer)
+        return spy
+
+    monkeypatch.setattr(run, "reader", spying)
+    line = run.run_cell(workload, SEED, 1.0, True, "cpu",
+                        overrides=overrides)
+    bench = run.load_json(os.path.join(run.ROOT, "BENCHMARK.json"))
+    listed = {m["name"] for m in bench["per_layer"]
+              if workload in m.get("workloads", [workload])} & SPAN_METRICS
+    assert listed == ({"serve.launch_idle_pct", "resize_roofline"}
+                      if "serve" in workload else SPAN_METRICS - {
+                          "serve.launch_idle_pct", "resize_roofline"})
+    for name in listed:
+        summary = seen[name]["trace"]
+        assert summary["spans_dropped"] == 0
+        assert owner_span in {s["name"] for s in summary["program_spans"]}
+        value = plain(name)(seen[name])
+        if name == "resize_roofline":   # no device events on the CPU
+            assert value is None and name not in line["metrics"]
+        else:
+            assert value is not None
+            assert line["metrics"][name] == {"value": value, "unit": "%"}

@@ -50,3 +50,14 @@ def test_busy_and_idle_split():
     named = dict(trace.reduce(events, s, s + 100 * ms)["idle_gaps"])
     assert named["cudaLaunchKernel"] == pytest.approx(0.030)
     assert sum(named.values()) == pytest.approx(0.065)
+
+
+def test_device_time_per_trained_image():
+    from benchmark import run
+
+    read = run.reader("train.device_ms_per_img")
+    busy = {"busy_s": 3.0, "window_s": 4.0}
+    assert read({"trace": busy, "images": 1500}) == pytest.approx(2.0)
+    assert read({"trace": None, "images": 1500}) is None
+    assert read({"trace": {"busy_s": 0.0, "window_s": 4.0},
+                 "images": 1500}) is None

@@ -8,10 +8,10 @@ parameters after them are kept. The window then goes on with the same
 object over the ``resident_batches`` seeded uint8 batches in turn. After
 it, the reference takes the same steps from the same weights and batches.
 
-Families: ``csnet`` runs ``train.step.make_train_step`` with the recipe's
-Adam (``train.optim.make_adam_dwd``) and the BN-gamma penalty; ``csf``
-runs ``train.csf_step.CSFTrainStep`` (``iter_size`` micro-steps to an
-optimizer step).
+The family supplies both steps (``benchmark.families``): the port's, its
+micro-steps to an optimizer step and the loss it reports, and the plain
+recipe's. A traced run traces the window under ``trace.ProgramTracer``
+with the loop's thread's spans.
 """
 
 from __future__ import annotations
@@ -24,8 +24,7 @@ import torch.nn.functional as F
 from . import check, roofline, weights
 from .families import family
 from .reference.common import tf32
-from .reference.train import CSFRecipe, CSNetRecipe
-from .trace import Tracer
+from .trace import OWNER, ProgramTracer
 
 CHECK_STEPS = 3
 
@@ -44,40 +43,23 @@ def make_batches(seed: int, n: int, batch: int, hw: int, device):
     return images, targets.permute(0, 1, 3, 4, 2).contiguous()
 
 
+def _need_recipe(fam, cfg: dict) -> None:
+    if not hasattr(fam, "program_step"):
+        raise ValueError(f"model family {cfg['family']!r} has no training "
+                         f"recipe (benchmark/families/{cfg['family']}.py "
+                         f"gives no program_step): it takes no train cell")
+
+
 class _Program:
     """The port's step for a family, and how to read its state."""
 
     def __init__(self, fam, cfg: dict, traffic: dict, state: dict, device):
-        from sod100k_tpu_torch.train import csf_step, optim, step
-
         self.model = fam.program_model(state, device)
-        self.traffic = traffic
-        t = traffic
-        if cfg["family"] == "csnet":
-            self.opt = optim.make_adam_dwd(self.model,
-                                           weight_decay=t["weight_decay"])
-            self.step = step.make_train_step(
-                self.model, self.opt, flops_weight=t["penalty_weight"],
-                flops_expand=t["penalty_expand"], batch_size=t["batch"],
-                from_u8=True)
-            self.micro = 1
-        else:
-            csf_step.freeze_reference_params(self.model)
-            self.opt = csf_step.make_csf_optimizer(
-                self.model, weight_decay=t["weight_decay"])
-            self.step = csf_step.CSFTrainStep(
-                self.model, self.opt, iter_size=t["iter_size"],
-                batch_size=t["batch"], from_u8=True)
-            self.micro = t["iter_size"]
-        self.family = cfg["family"]
+        self.opt, self.step = fam.program_step(self.model, traffic)
+        self.micro = fam.micro_steps(traffic)
 
     def __call__(self, image, target) -> torch.Tensor:
-        batch = {"image": image, "target": target}
-        if self.family == "csnet":
-            out = self.step(batch, self.traffic["lr"], 1.0)
-            return out["loss"] + self.traffic["penalty_weight"] \
-                * out["penalty"]
-        return self.step(batch, self.traffic["lr"])["loss"]
+        return self.step(image, target)
 
     def first_moments(self) -> dict:
         """Each trained leaf's first gradient as the optimizer got it, from
@@ -98,29 +80,17 @@ class _Program:
 
 
 def _reference(fam, cfg, traffic, state, images, targets, steps: int):
-    t = traffic
-    if cfg["family"] == "csnet":
-        rec = CSNetRecipe(state, fam.plan, batch=t["batch"],
-                          penalty_weight=t["penalty_weight"],
-                          expand=t["penalty_expand"],
-                          weight_decay=t["weight_decay"])
-    else:
-        rec = CSFRecipe(state, fam.backbone, batch=t["batch"],
-                        iter_size=t["iter_size"],
-                        weight_decay=t["weight_decay"])
+    _need_recipe(fam, cfg)
+    rec = fam.reference_recipe(state, traffic)
+    micro = fam.micro_steps(traffic)
     p0 = {k: v.clone() for k, v in rec.params.items()}
     losses, grad, k = [], None, 0
     for s in range(steps):
-        if cfg["family"] == "csnet":
-            out = rec.step(images[k], targets[k], t["lr"])
-            losses.append(out["loss"] + t["penalty_weight"] * out["penalty"])
-            k += 1
-        else:
-            micro = [(images[k + i], targets[k + i])
-                     for i in range(t["iter_size"])]
-            out = rec.step(micro, t["lr"])
-            losses.append(out["loss"])
-            k += t["iter_size"]
+        out = fam.reference_step(
+            rec, [(images[k + i], targets[k + i]) for i in range(micro)],
+            traffic)
+        losses.append(out["loss"])
+        k += micro
         if s == 0:
             grad = out["grads"]
     return {"losses": losses, "grad": grad,
@@ -130,6 +100,7 @@ def _reference(fam, cfg, traffic, state, images, targets, steps: int):
 def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
         device: torch.device, t_start: float, log) -> dict:
     fam = family(cfg)
+    _need_recipe(fam, cfg)
     hw, batch = int(cfg["hw"]), int(traffic["batch"])
     n_batches = int(traffic["resident_batches"])
     steps = CHECK_STEPS
@@ -151,7 +122,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     change = {n: v - p0[n] for n, v in prog.params().items()}
     readings = {"losses": losses, "grad": grad, "change": change}
 
-    tracer = Tracer(device) if trace else None
+    tracer = ProgramTracer(device, OWNER["train"]) if trace else None
     if tracer:
         tracer.start()
     _sync(device)
