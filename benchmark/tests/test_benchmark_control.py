@@ -41,10 +41,10 @@ def test_training_control_and_faults_fail():
         assert any(got[case][k] > limits[k] for k in limits), (case, got)
 
 
-def test_csf_training_control_and_faults_fail(csf_train_root):
+def test_csf_training_control_and_faults_fail():
     device = _card()
-    _, _, cfg, traffic = cell_files("csf-r2n50.train-b8", csf_train_root)
-    traffic = {**traffic, "resident_batches": 6}
+    _, _, cfg, traffic = cell_files("csf-r2n50.train-b8")
+    traffic = {**traffic, "resident_batches": 30}
     limits = traffic["limits"]
     got = control.train_control(cfg, traffic, 2**31 + 3, device)
     for case in ("control", "half_batch", "unchanged"):
@@ -54,11 +54,10 @@ def test_csf_training_control_and_faults_fail(csf_train_root):
 @pytest.mark.parametrize("workload", ["csf-r2n50.serve-mixed",
                                       "csnet-l-x2.train-b24",
                                       "csf-r2n50.train-b8"])
-def test_a_run_in_tf32_is_not_correct(workload, csf_train_root):
+def test_a_run_in_tf32_is_not_correct(workload):
     _card()
     with tf32(False):
         line = run.run_cell(workload, 2**31 + 11, 3.0, False, "cuda:0",
-                            root=csf_train_root,
                             overrides={"config": {"tf32": True}})
     print(workload, line["checks"])
     assert not line["correct"], line["checks"]

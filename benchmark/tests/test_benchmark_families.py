@@ -1,12 +1,14 @@
 """A model family is new files alone: a toy family (two convolutions, a
-batch norm and a bilinear resize) put into a copy of the tree as one
-module, with its configuration, traffic and entries, serves and trains
-through ``run.run_cell`` on the CPU, and ``benchmark.counts`` counts it;
-the harness outside ``benchmark/families/`` compares no family name."""
+batch norm and a bilinear resize) put into a copy of the tree as a family
+module and its reference, with its configuration, traffic and entries,
+serves and trains through ``run.run_cell`` on the CPU, ``benchmark.counts``
+counts it, and the family-wide tests take it up with no edit; the harness
+outside ``benchmark/families/`` compares no family name."""
 
 import ast
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -18,15 +20,32 @@ from benchmark import families, train_cell
 ROOT = __file__.rsplit("/benchmark/", 1)[0]
 SEED = 2**31 + 5151
 
-TOY = '''"""A toy family: conv 3x3 stride 2 with a bias, batch norm, ReLU,
-conv 1x1 with a bias, bilinear resize back to the input."""
+TOY_REFERENCE = '''"""The toy's plain forward: conv 3x3 stride 2 with a bias, batch
+norm, ReLU, conv 1x1 with a bias, bilinear resize back to the input."""
+
+import torch.nn.functional as F
+
+from .common import Norms, conv, normalize_u8, resize
+
+
+def forward(state, images_u8, norms=None):
+    x = normalize_u8(images_u8)
+    y = conv(x, state["conv1.weight"], state["conv1.bias"], stride=2,
+             padding=1)
+    y = F.relu((norms or Norms()).bn(y, state, "bn1"))
+    y = conv(y, state["conv2.weight"], state["conv2.bias"])
+    return resize(y, x.shape[2:])
+'''
+
+TOY = '''"""A toy family, its forward in ``reference/toy.py``."""
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..reference.common import Norms, conv, normalize_u8, resize
+from ..reference import toy
+from ..reference.common import Norms
 from ..reference.train import Adam
 
 
@@ -46,12 +65,7 @@ class Family:
                 ("conv2.bias", (1,), "conv_bias")]
 
     def forward(self, state, images_u8, norms=None):
-        x = normalize_u8(images_u8)
-        y = conv(x, state["conv1.weight"], state["conv1.bias"], stride=2,
-                 padding=1)
-        y = F.relu((norms or Norms()).bn(y, state, "bn1"))
-        y = conv(y, state["conv2.weight"], state["conv2.bias"])
-        return resize(y, x.shape[2:])
+        return toy.forward(state, images_u8, norms)
 
     def count_forward(self, state, images_u8):
         self.forward(state, images_u8)
@@ -175,6 +189,7 @@ def _tree_with_the_toy(tmp: str) -> list:
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
     added = {"benchmark/families/toy.py": TOY,
+             "benchmark/reference/toy.py": TOY_REFERENCE,
              "benchmark/configs/toy.json": json.dumps(CONFIG)}
     for cell, traffic in TRAFFIC.items():
         added[f"benchmark/traffic/{cell}.json"] = json.dumps(traffic)
@@ -190,8 +205,9 @@ def _tree_with_the_toy(tmp: str) -> list:
         bench["workloads"].append({"name": cell, "config": "toy",
                                    "traffic": cell.split(".")[1],
                                    "chips": 1, "why": "a test"})
-        next(m for m in bench["end_to_end"]
-             if m["name"] == moves)["workloads"].append(cell)
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if moves in (m["name"], m.get("moves")):
+                m["workloads"].append(cell)
     with open(os.path.join(tmp, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
     return sorted(added)
@@ -214,10 +230,61 @@ def test_a_new_family_is_new_files_and_entries_alone(tmp_path):
 
 
 def test_an_unknown_family_is_refused():
-    assert families.names() == ["csf", "csnet"]
-    with pytest.raises(ValueError, match=r"'u2net'; one of \['csf', "
-                                         r"'csnet'\]"):
-        families.family({"family": "u2net"})
+    here = os.path.join(ROOT, "benchmark", "families")
+    on_disk = sorted(name[:-3] for name in os.listdir(here)
+                     if name.endswith(".py") and not name.startswith("_"))
+    assert families.names() == on_disk
+    assert {"csf", "csnet"} <= set(on_disk)
+    # no module can be named so
+    with pytest.raises(ValueError, match=re.escape(
+            f"'no-such-family'; one of {on_disk}")):
+        families.family({"family": "no-such-family"})
+
+
+# The tests that hold every family, configuration or reference module
+# there is, wherever it came from; ``-k`` keeps their cases of the toy
+# and the tests that take no case a family
+FAMILY_WIDE = [
+    "test_benchmark_nojax.py::test_reference_loads_nothing_of_the_port",
+    "test_benchmark_counts.py::test_config_counts_are_current",
+    "test_benchmark_reference.py::test_eval_forward_matches_the_port",
+    "test_benchmark_spec.py",
+    "test_benchmark_families.py::test_an_unknown_family_is_refused"]
+TOY_CASES = "toy or loads_nothing or spec or unknown"
+
+
+def _pytest(tmp: str, tests: list) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-m", "pytest", "-v", "-p", "no:cacheprovider",
+         "-k", TOY_CASES, *[f"benchmark/tests/{t}" for t in tests]],
+        cwd=tmp, capture_output=True, text=True, timeout=600)
+
+
+@pytest.mark.parametrize("planted", [False, True],
+                         ids=["sound", "reference-loads-the-port"])
+def test_the_family_wide_tests_take_a_new_family(tmp_path, planted):
+    tmp = str(tmp_path)
+    _tree_with_the_toy(tmp)
+    shutil.copytree(os.path.join(ROOT, "benchmark", "tests"),
+                    os.path.join(tmp, "benchmark", "tests"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    if not planted:
+        out = _pytest(tmp, FAMILY_WIDE)
+        assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+        for case in ("test_config_counts_are_current[toy] PASSED",
+                     "test_eval_forward_matches_the_port[toy.json] PASSED",
+                     "test_reference_loads_nothing_of_the_port PASSED",
+                     "test_an_unknown_family_is_refused PASSED",
+                     "test_benchmark_spec.py::"):
+            assert case in out.stdout, out.stdout[-4000:]
+        return
+    # the new reference module is among those held to load nothing of
+    # the port
+    with open(os.path.join(tmp, "benchmark", "reference", "toy.py"),
+              "a") as f:
+        f.write("\nimport sod100k_tpu_torch.ops.resample  # noqa\n")
+    out = _pytest(tmp, FAMILY_WIDE[:1])
+    assert out.returncode == 1, out.stdout[-4000:]
 
 
 def test_a_family_without_a_recipe_takes_no_train_cell(monkeypatch):

@@ -79,17 +79,18 @@ def test_train_faults_are_caught(monkeypatch):
                    and fault[k]["value"] > fault[k]["limit"] for k in fault)
 
 
+# two micro-steps an update, not the cell's ten: a CPU holds this
 CSF_TRAIN = {"config": {"hw": 32},
-             "traffic": {"batch": 2, "resident_batches": 6}}
+             "traffic": {"batch": 2, "iter_size": 2, "resident_batches": 6}}
 
 
-def _csf_train(root):
+def _csf_train():
     return run.run_cell("csf-r2n50.train-b8", SEED, 1.0, False, "cpu",
-                        root=root, overrides=CSF_TRAIN)
+                        overrides=CSF_TRAIN)
 
 
-def test_csf_train_faults_are_caught(monkeypatch, csf_train_root):
-    sound = _csf_train(csf_train_root)["checks"]
+def test_csf_train_faults_are_caught(monkeypatch):
+    sound = _csf_train()["checks"]
     from sod100k_tpu_torch.train import csf_step
 
     call = csf_step.CSFTrainStep.__call__
@@ -100,11 +101,11 @@ def test_csf_train_faults_are_caught(monkeypatch, csf_train_root):
 
     with monkeypatch.context() as m:
         m.setattr(csf_step.CSFTrainStep, "__call__", half_batch)
-        half = _csf_train(csf_train_root)
+        half = _csf_train()
     assert not half["correct"]
     with monkeypatch.context() as m:
         m.setattr(torch.optim.Adam, "step", lambda self, closure=None: None)
-        unchanged = _csf_train(csf_train_root)
+        unchanged = _csf_train()
     assert not unchanged["correct"]
     assert unchanged["checks"]["change_gap"]["value"] == pytest.approx(1.0)
     for fault in (half["checks"], unchanged["checks"]):

@@ -1,6 +1,8 @@
 """Nothing the benchmark runs loads JAX or the JAX package, compared by
-whole top-level names; the reference loads nothing of the port."""
+whole top-level names; the reference, every module of it there is, loads
+nothing of the port."""
 
+import os
 import subprocess
 import sys
 
@@ -37,7 +39,15 @@ def test_a_run_loads_no_jax():
 
 def test_reference_loads_nothing_of_the_port():
     mods = _modules_after(
-        "import benchmark.reference.csnet, benchmark.reference.csf, "
-        "benchmark.reference.train, benchmark.weights, benchmark.check")
+        "import importlib, pkgutil\n"
+        "import benchmark.reference as ref, benchmark.weights, "
+        "benchmark.check\n"
+        "for m in pkgutil.iter_modules(ref.__path__):\n"
+        "    importlib.import_module(ref.__name__ + '.' + m.name)")
+    here = os.path.join(ROOT, "benchmark", "reference")
+    on_disk = {"benchmark.reference." + name[:-3]
+               for name in os.listdir(here) if name.endswith(".py")
+               and name != "__init__.py"}
+    assert on_disk and on_disk <= mods
     assert not {m for m in mods if m.split(".")[0] == "sod100k_tpu_torch"}
     assert loaded_forbidden(mods) == []

@@ -1,6 +1,10 @@
 """The plain reference against the port, at small sizes on the CPU: the
-parameter spec against the port's state dict, both forwards, and the
-train steps' losses, first gradients and updates."""
+parameter spec against the port's state dict, both forwards (of every
+configuration ``BENCHMARK.json`` lists too), and the train steps' losses,
+first gradients and updates."""
+
+import json
+import os
 
 import pytest
 import torch
@@ -9,7 +13,37 @@ from benchmark import check, families, weights
 from benchmark.reference.common import Norms
 from benchmark.train_cell import _Program, _reference, make_batches
 
+ROOT = __file__.rsplit("/benchmark/", 1)[0]
 SEED = 2**31 + 77
+LISTED_HW = 64  # every configuration BENCHMARK.json lists, at this size
+
+
+HAND = [
+    pytest.param({"family": "csnet", "basewidth": 8, "split": [0.5, 0.5]},
+                 32, id="csnet-w8"),
+    pytest.param({"family": "csnet", "basewidth": 40, "split": [0.5, 0.5]},
+                 32, id="csnet-l-x2"),
+    pytest.param({"family": "csnet", "basewidth": 8, "split": [1.0]}, 32,
+                 id="csnet-w8-x1"),
+    pytest.param({"family": "csf", "backbone": "res2net50"}, 64,
+                 id="csf-r2n50"),
+]
+
+
+def _listed() -> list:
+    """A case for each configuration ``BENCHMARK.json`` lists, but one
+    that a hand-written case already runs at the same size."""
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        files = [c["file"] for c in json.load(f)["configs"]]
+    cases = []
+    for path in files:
+        with open(os.path.join(ROOT, path)) as f:
+            cfg = json.load(f)
+        if not any(hw == LISTED_HW and hand.items() <= cfg.items()
+                   for hand, hw in (p.values for p in HAND)):
+            cases.append(pytest.param(cfg, LISTED_HW,
+                                      id=os.path.basename(path)))
+    return cases
 
 
 def _setup(cfg, hw, n=2):
@@ -21,12 +55,7 @@ def _setup(cfg, hw, n=2):
     return fam, state, images
 
 
-@pytest.mark.parametrize("cfg,hw", [
-    ({"family": "csnet", "basewidth": 8, "split": [0.5, 0.5]}, 32),
-    ({"family": "csnet", "basewidth": 40, "split": [0.5, 0.5]}, 32),
-    ({"family": "csnet", "basewidth": 8, "split": [1.0]}, 32),
-    ({"family": "csf", "backbone": "res2net50"}, 64),
-], ids=["csnet-w8", "csnet-l-x2", "csnet-w8-x1", "csf-r2n50"])
+@pytest.mark.parametrize("cfg,hw", [*HAND, *_listed()])
 def test_eval_forward_matches_the_port(cfg, hw):
     from sod100k_tpu_torch.train.step import make_eval_step
 
